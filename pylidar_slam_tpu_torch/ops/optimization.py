@@ -1,0 +1,119 @@
+"""Robust weighted least squares + Gauss-Newton on SE(3) (torch port of
+``pylidar_slam_tpu.ops.optimization``).
+
+IRLS weights ``w_i = sqrt(C(r_i)) / max(|r_i|, eps)`` for a robust cost C,
+then Gauss-Newton steps ``dx = -(J^T J)^{-1} J^T r`` on the weighted system.
+Everything is masked fixed-shape, and the 6x6 solve stays on the device
+without a host sync (``cholesky_ex`` reports failure in a tensor).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from pylidar_slam_tpu_torch.ops import rotation, se3
+
+SCHEMES = ("least_square", "default", "huber", "exp", "neighborhood",
+           "geman_mcclure", "square_geman_mcclure", "cauchy")
+
+
+def robust_cost(scheme: str, residuals: torch.Tensor, sigma,
+                sq_dists: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Robust cost C(r) for each residual (elementwise)."""
+    r2 = residuals * residuals
+    if scheme in ("least_square", "default"):
+        return r2
+    if scheme == "huber":
+        abs_r = torch.abs(residuals)
+        return torch.where(abs_r < sigma, r2, 2.0 * sigma * abs_r - sigma ** 2)
+    if scheme == "exp":
+        return r2 * torch.exp(-r2 / sigma ** 2)
+    if scheme == "neighborhood":
+        assert sq_dists is not None, "neighborhood scheme requires sq_dists"
+        return r2 * torch.exp(-sq_dists / sigma ** 2)
+    if scheme == "geman_mcclure":
+        return sigma * r2 / (sigma + r2)
+    if scheme == "square_geman_mcclure":
+        return r2 * (sigma / (sigma + r2)) ** 2
+    if scheme == "cauchy":
+        return torch.log(1.0 + (residuals / sigma) ** 2)
+    raise ValueError(f"Unknown least-square scheme: {scheme}")
+
+
+def robust_weights(scheme: str, residuals: torch.Tensor, sigma,
+                   sq_dists: Optional[torch.Tensor] = None,
+                   eps: float = 1.0e-4) -> torch.Tensor:
+    """IRLS attenuation weights sqrt(C(r)) / max(|r|, eps)."""
+    if scheme in ("least_square", "default"):
+        return torch.ones_like(residuals)
+    clamped = torch.clamp(torch.abs(residuals), min=eps)
+    return torch.sqrt(robust_cost(scheme, residuals, sigma, sq_dists)) / clamped
+
+
+# ----------------------------------------------------------------------------
+# Point-to-plane residuals and analytic Jacobian
+# ----------------------------------------------------------------------------
+
+def point_to_plane_residuals(params: torch.Tensor,
+                             target_points: torch.Tensor,
+                             ref_points: torch.Tensor,
+                             ref_normals: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Residuals ((T(params) p - q) . n) for (N, 3) correspondences -> (N,)."""
+    mat = se3.build_pose_matrix(params[None])[0]
+    transformed = se3.apply_transformation(target_points, mat)
+    res = torch.sum((transformed - ref_points) * ref_normals, dim=-1)
+    if mask is not None:
+        res = torch.where(mask, res, torch.zeros_like(res))
+    return res
+
+
+def point_to_plane_jacobian(params: torch.Tensor,
+                            target_points: torch.Tensor,
+                            ref_normals: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Analytic Jacobian of the point-to-plane residuals: (N, 6),
+    J[n, p] = (dT/dx_p @ p_n) . n_n."""
+    jac_mat = rotation.pose_matrix_jacobian(params[None])[0]  # (6, 4, 4)
+    jac_rot = jac_mat[:, :3, :3]
+    jac_tr = jac_mat[:, :3, 3]
+    dpt = torch.einsum("pij,nj->pni", jac_rot, target_points) + jac_tr[:, None, :]
+    jac = torch.einsum("pni,ni->np", dpt, ref_normals)
+    if mask is not None:
+        jac = torch.where(mask[:, None], jac, torch.zeros_like(jac))
+    return jac
+
+
+# ----------------------------------------------------------------------------
+# Gauss-Newton
+# ----------------------------------------------------------------------------
+
+def solve_normal_equations(h: torch.Tensor, g: torch.Tensor,
+                           det_threshold: float = 1.0e-7
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dx = -H^{-1} g by Cholesky, on the device with no host sync.
+
+    Singular systems (|det| < det_threshold, the reference's guard) give
+    dx = 0 and singular = True.  H is a sum of outer products (positive
+    semi-definite), so det(H) is the squared product of the Cholesky
+    diagonal, and a factorization that fails marks H singular as well.
+    """
+    chol, info = torch.linalg.cholesky_ex(h)
+    det = torch.prod(torch.diagonal(chol)) ** 2
+    singular = (info != 0) | (torch.abs(det) < det_threshold)
+    dx = -torch.cholesky_solve(g[:, None], chol)[:, 0]
+    return torch.where(singular, torch.zeros_like(dx), dx), singular
+
+
+def gauss_newton_step(res: torch.Tensor, jac: torch.Tensor,
+                      weights: torch.Tensor,
+                      det_threshold: float = 1.0e-7):
+    """One weighted GN step from residuals (N,), Jacobian (N, 6), weights
+    (N,).  Returns (dx (6,), loss, singular)."""
+    wres = res * weights
+    wjac = jac * weights[:, None]
+    h = torch.sum(wjac[:, :, None] * wjac[:, None, :], dim=0)
+    g = torch.sum(wjac * wres[:, None], dim=0)
+    dx, singular = solve_normal_equations(h, g, det_threshold)
+    return dx, torch.sum(wres * wres), singular

@@ -1,0 +1,192 @@
+"""Spherical projection and the rimg8 range-image upload codec (torch port of
+``pylidar_slam_tpu.ops.projection``).
+
+Projection model (the reference's, slam/common/projection.py):
+
+    r     = ||p||
+    theta = -atan2(y, x)                       # azimuth
+    phi   = asin(z / r)                        # elevation
+    col   = 0.5 * (theta / pi + 1) * W
+    row   = (1 - (phi + |fov_down|) / fov) * H
+
+Images are channels-last ``(H, W, C)``, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+PACKED_RANGE_STEP = 0.002  # 2 mm -> uint16 covers 131 m
+
+
+def _fovs(proj) -> Tuple[float, float, float]:
+    fov_up = proj.up_fov / 180.0 * math.pi
+    fov_down = proj.down_fov / 180.0 * math.pi
+    return fov_up, fov_down, abs(fov_down) + abs(fov_up)
+
+
+def point_norm(points: torch.Tensor) -> torch.Tensor:
+    """||p|| over the last axis of (..., 3).  On the CPU this rounds as the
+    JAX package's ``jnp.linalg.norm`` does (a fused multiply-add chain), which
+    keeps z-buffer range keys identical in the parity tests."""
+    return torch.linalg.vector_norm(points, dim=-1)
+
+
+class SphericalProjection(NamedTuple):
+    """Static projection parameters."""
+    height: int
+    width: int
+    up_fov: float  # degrees
+    down_fov: float  # degrees
+
+    def project(self, points: torch.Tensor):
+        """Projects (..., N, 3) points to float pixel coords.
+
+        Returns (rows, cols, r), each (..., N).  Points with r == 0 get
+        row = col = -1 (invalid).
+        """
+        _, fov_down, fov = _fovs(self)
+        r = point_norm(points)
+        invalid = r == 0.0
+        r_safe = torch.where(invalid, torch.full_like(r, 0.001), r)
+        x, y, z = points[..., 0], points[..., 1], points[..., 2]
+        theta = -torch.atan2(y, x)
+        phi = torch.asin(z / r_safe)
+        proj_col = 0.5 * (theta / math.pi + 1.0) * self.width
+        proj_row = (1.0 - (phi + abs(fov_down)) / fov) * self.height
+        minus_one = torch.full_like(r, -1.0)
+        return (torch.where(invalid, minus_one, proj_row),
+                torch.where(invalid, minus_one, proj_col),
+                torch.where(invalid, torch.zeros_like(r), r))
+
+
+def np_encode_range_image(pts: np.ndarray, proj: SphericalProjection,
+                          range_step: float = PACKED_RANGE_STEP,
+                          planes: bool = True) -> np.ndarray:
+    """Encodes an (N, 3) cloud into the rimg8 upload (host side).
+
+    Layout: (H*W + (H+W+1)//2, 2) uint8 -- a z-buffered range image (the
+    closest point wins its pixel; uint16 little-endian range steps, 0 =
+    empty) followed by the per-ROW mean elevation offsets (H bytes) and
+    per-COLUMN mean azimuth offsets (W bytes), 2 bytes per row.  Exact on a
+    regular firing pattern.  Uses the shared native encoder when it builds,
+    numpy otherwise.
+    """
+    if not planes:
+        raise NotImplementedError(
+            "Only the rimg8 (planes) range-image format is ported; the "
+            "per-pixel sub-offset formats are left out (ROADMAP.md, 'What "
+            "the port leaves out')")
+    h, w = proj.height, proj.width
+    fov_up, fov_down, fov = _fovs(proj)
+
+    from pylidar_slam_tpu_torch.utils import native
+    out = native.encode_range_image_planes(pts, h, w, fov_up, fov_down,
+                                           range_step)
+    if out is not None:
+        return out
+
+    # numpy fallback: descending-range sort, last write wins (= closest)
+    pts = pts[:, :3].astype(np.float32)
+    pts = pts[~np.isnan(pts).any(axis=1)]
+    r = np.linalg.norm(pts, axis=-1)
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    r_safe = np.where(r > 0, r, 1.0)
+    theta = -np.arctan2(y, x)
+    phi = np.arcsin(np.clip(z / r_safe, -1.0, 1.0))
+    colf = 0.5 * (theta / math.pi + 1.0) * w
+    rowf = (1.0 - (phi + abs(fov_down)) / fov) * h
+    # +0.03 px tie-break bias (the native encoder's): beams exactly on the
+    # half-pixel boundary otherwise flip round direction on f32 noise.
+    row = np.floor(rowf + 0.53)
+    col = np.floor(colf + 0.53) % w
+    steps = np.round(r / range_step)
+    keep = (r > 0) & (steps < 65535) & (row >= 0) & (row <= h - 1)
+    row, col, r, theta, phi = (a[keep] for a in (row, col, r, theta, phi))
+    steps = np.maximum(steps[keep], 1.0).astype(np.uint16)
+    pix = (row * w + col).astype(np.int64)
+
+    order = np.argsort(-r, kind="stable")
+    pw = 2.0 * math.pi / w
+    ph = fov / h
+    theta_c = (2.0 * col / w - 1.0) * math.pi
+    phi_c = (1.0 - row / h) * fov - abs(fov_down)
+    dtheta = (theta - theta_c + math.pi) % (2.0 * math.pi) - math.pi
+    dphi = phi - phi_c
+
+    out = np.zeros((h * w + (h + w + 1) // 2, 2), np.uint8)
+    out[pix[order], 0] = (steps[order] & 0xFF).astype(np.uint8)
+    out[pix[order], 1] = (steps[order] >> 8).astype(np.uint8)
+    # Plane means over the pixel winners, matching what decodes.
+    win = np.full(h * w, -1, np.int64)
+    win[pix[order]] = order
+    wi = win[win >= 0]
+    wpix = np.nonzero(win >= 0)[0]
+    tq = dtheta[wi] / pw + 0.53
+    pq = dphi[wi] / ph + 0.47
+    row_sum = np.bincount(wpix // w, weights=pq, minlength=h)
+    row_cnt = np.bincount(wpix // w, minlength=h)
+    col_sum = np.bincount(wpix % w, weights=tq, minlength=w)
+    col_cnt = np.bincount(wpix % w, minlength=w)
+    row_mean = np.where(row_cnt > 0, row_sum / np.maximum(row_cnt, 1), 0.5)
+    col_mean = np.where(col_cnt > 0, col_sum / np.maximum(col_cnt, 1), 0.5)
+    tail = np.zeros(((h + w + 1) // 2) * 2, np.uint8)
+    tail[:h] = np.clip(np.floor(row_mean * 256.0), 0, 255).astype(np.uint8)
+    tail[h:h + w] = np.clip(np.floor(col_mean * 256.0), 0, 255).astype(np.uint8)
+    out[h * w:] = tail.reshape(-1, 2)
+    return out
+
+
+def _separable_decode(steps: torch.Tensor, valid: torch.Tensor,
+                      theta_c: torch.Tensor, phi_r: torch.Tensor,
+                      h: int, w: int, n: int, range_step: float):
+    """Separable-angle decode: per-col theta table (W,) x per-row phi table
+    (H,) -> (N, 3) points in pixel order (zeros past H*W)."""
+    cos_t, sin_t = torch.cos(theta_c), torch.sin(theta_c)
+    cos_p, sin_p = torch.cos(phi_r), torch.sin(phi_r)
+    r_img = (steps[: h * w].to(torch.float32) * range_step).reshape(h, w)
+    r_img = torch.where(valid[: h * w].reshape(h, w), r_img,
+                        torch.zeros_like(r_img))
+    pts_img = torch.stack([r_img * (cos_p[:, None] * cos_t[None, :]),
+                           -r_img * (cos_p[:, None] * sin_t[None, :]),
+                           r_img * sin_p[:, None]], dim=-1).reshape(h * w, 3)
+    if n > h * w:
+        pts_img = torch.cat([pts_img, pts_img.new_zeros((n - h * w, 3))], dim=0)
+    return pts_img, valid
+
+
+def decode_range_image(buf: torch.Tensor, proj: SphericalProjection,
+                       range_step: float = PACKED_RANGE_STEP):
+    """Device-side inverse of ``np_encode_range_image`` for rimg8.
+
+    Args:
+        buf: (N >= H*W + (H+W+1)//2, 2) uint8, zero-padded past the tail.
+    Returns:
+        (points (N, 3) float32, valid (N,) bool); the first H*W rows are the
+        pixels in row-major order.
+    """
+    if buf.shape[1] != 2:
+        raise NotImplementedError(
+            "Only the rimg8 range-image format is ported (ROADMAP.md, 'What "
+            "the port leaves out')")
+    h, w = proj.height, proj.width
+    _, fov_down, fov = _fovs(proj)
+    n = buf.shape[0]
+    dev = buf.device
+    steps = buf[:, 0].to(torch.int32) | (buf[:, 1].to(torch.int32) << 8)
+    valid = (steps > 0) & (torch.arange(n, device=dev) < h * w)
+    pw = 2.0 * math.pi / w
+    ph = fov / h
+    tail = buf[h * w:h * w + (h + w + 1) // 2, :2].reshape(-1)
+    rowq = tail[:h].to(torch.float32)
+    colq = tail[h:h + w].to(torch.float32)
+    col_idx = torch.arange(w, dtype=torch.float32, device=dev)
+    row_idx = torch.arange(h, dtype=torch.float32, device=dev)
+    theta_c = (2.0 * col_idx / w - 1.0) * math.pi + \
+        ((colq + 0.5) / 256.0 - 0.53) * pw
+    phi_r = (1.0 - row_idx / h) * fov - abs(fov_down) + \
+        ((rowq + 0.5) / 256.0 - 0.47) * ph
+    return _separable_decode(steps, valid, theta_c, phi_r, h, w, n, range_step)
