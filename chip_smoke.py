@@ -8,20 +8,31 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: the CUDA kernel(s) and the native host encoder from the sources;
-3. kernel vs plain: kernel B1 (``assoc_gn``) against its plain PyTorch
-   version at the main path's shapes (64x1024, window 1x2), on a model image
+2. build: the CUDA kernels (one nvcc per source, started together) and the
+   native host encoder, from the sources;
+3. B1 vs plain: kernel B1 (``assoc_gn``) against its plain PyTorch version
+   at the aggregated path's shapes (64x1024, window 1x2), on a model image
    from frame 0 and a target from frame 1 of the acceptance sequence, for
    all 8 robust schemes with the plane gate off and on;
-4. main path: ``ICPFrameToModel`` with the aggregated champion over the
-   140-frame acceptance sequence (64x1024, rimg8, batch 12, EI bootstrap),
-   counting the kernel's launches and scoring tr_err / ATE against ground
-   truth;
-5. times: kernel vs plain per call (CUDA events), and the port's
-   steady-state scans/s over the sequence.
+4. aggregated main path: ``ICPFrameToModel`` with the aggregated champion
+   over the 140-frame acceptance sequence (64x1024, rimg8, batch 12, EI
+   bootstrap), counting B1's launches and scoring tr_err / ATE against
+   ground truth and the round's bar;
+5. surfel main path: the surfel champion (K = 30 x S = 4096 map surfels,
+   M = 16384 targets, exact NN by kernel B2 at every one of 20 GN
+   iterations, knn map normals, f32 uploads, the previous pose as prior)
+   over the same 140 frames, counting B2's launches and the ones that did
+   work, scoring tr_err / ATE;
+6. B2 vs plain: kernel B2 (``nn_argmin``) against its plain version on the
+   surfel map left by phase 5 and the next frame's 16384 grid-sampled
+   targets at its prior, plus a map with duplicate rows, an all-invalid map
+   and odd sizes;
+7. times: each kernel vs its plain version per call (CUDA events), and each
+   path's steady-state scans/s over the sequence.
 
 The last line of stdout is the JSON result; the line before it holds the
-kernels' numbers.  Details go to build/chip_smoke.json (git-ignored).
+card's name and power limit, and the one before that the kernels' numbers.
+Details go to build/chip_smoke.json (git-ignored).
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -40,8 +52,10 @@ from pylidar_slam_tpu_torch.eval import acceptance
 from pylidar_slam_tpu_torch.eval import eval_odometry as ev
 from pylidar_slam_tpu_torch.ops import projection, se3
 from pylidar_slam_tpu_torch.ops.kernels import assoc_gn as b1
+from pylidar_slam_tpu_torch.ops.kernels import nn_argmin as b2
 from pylidar_slam_tpu_torch.ops.kernels.cuda_build import CSRC
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
+from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
 from pylidar_slam_tpu_torch.utils import native
 
@@ -53,8 +67,17 @@ PLANE_GATES = [0.0, 0.1]
 # held to SUM_TOL times its Cauchy-Schwarz scale (assoc_gn.sum_errors); the
 # match count exactly.
 SUM_TOL = 2e-5
+# B2 and its plain version form the same float32 sums in the same order:
+# indices identical, squared distances within NN_ULPS units in the last
+# place (expected bit-identical).
+NN_ULPS = 2
 TIMED_CALLS = 200
+B2_TIMED_CALLS = {"kernel": 100, "plain": 10}
 SEQ_REPEATS = 3
+# The round's accuracy bar: the reference kd-tree run's tr_err + 0.1 pt.
+BAR_PT = 0.001
+REPLACES = {"assoc_gn": "pylidar_slam_tpu/ops/pallas/assoc_gn_kernel.py:169",
+            "nn_argmin": "pylidar_slam_tpu/ops/pallas/nn_kernel.py:76"}
 
 
 def log(msg: str):
@@ -69,27 +92,43 @@ def card_line() -> str:
 
 
 def build_phase() -> dict:
-    t0 = time.perf_counter()
-    b1.build()
-    t1 = time.perf_counter()
-    if native.get_lib() is None:
-        raise RuntimeError("native host encoder did not build")
-    t2 = time.perf_counter()
-    log(f"[build] assoc_gn.cu {t1 - t0:.2f} s, native encoder {t2 - t1:.2f} s")
+    """One nvcc per kernel source and the host encoder, started together."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    def encoder():
+        if native.get_lib() is None:
+            raise RuntimeError("native host encoder did not build")
+
+    with ThreadPoolExecutor(3) as pool:
+        futures = {"assoc_gn": pool.submit(timed, b1.build),
+                   "nn_argmin": pool.submit(timed, b2.build),
+                   "native": pool.submit(timed, encoder)}
+        secs = {name: f.result() for name, f in futures.items()}
+    log("[build] " + ", ".join(f"{n} {t:.2f} s" for n, t in secs.items())
+        + " (in parallel)")
     for report in sorted((ROOT / "build" / "kernels").glob("*.log")):
         log(f"[build] {report.name}:\n{report.read_text().strip()}")
-    return {"kernel_build_s": t1 - t0, "native_build_s": t2 - t1,
-            "source": str((CSRC / "assoc_gn.cu").relative_to(ROOT))}
+    return {"seconds": secs,
+            "sources": {name: str((CSRC / f"{name}.cu").relative_to(ROOT))
+                        for name in ("assoc_gn", "nn_argmin")}}
 
 
 def load_sequence():
-    loader = SyntheticDatasetLoader(SyntheticConfig(**acceptance.SEQ_KW))
+    """The 140-frame acceptance sequence plus the frame after it (the
+    trajectory is drawn frame by frame, so its first 140 frames are the
+    acceptance sequence's)."""
+    n = acceptance.SEQ_KW["num_frames"]
+    loader = SyntheticDatasetLoader(SyntheticConfig(
+        **dict(acceptance.SEQ_KW, num_frames=n + 1)))
     ds = loader.sequences()[0][0][0]
     t0 = time.perf_counter()
-    frames = [ds[i] for i in range(len(ds))]
+    frames = [ds[i] for i in range(n + 1)]
     log(f"[setup] {len(frames)} frames generated on the host in "
         f"{time.perf_counter() - t0:.1f} s")
-    return loader, frames
+    return loader, frames[:n], frames[n]
 
 
 def kernel_inputs(loader, frames, dev):
@@ -112,7 +151,7 @@ def kernel_inputs(loader, frames, dev):
     return timg.contiguous(), state.xyz, state.normal, state.rng > 0
 
 
-def compare_phase(inputs) -> dict:
+def compare_b1_phase(inputs) -> dict:
     wr, wc, gate = 1, 2, 0.6
     worst_abs, worst_scaled, rows = 0.0, 0.0, []
     for scheme in SCHEMES:
@@ -136,7 +175,7 @@ def compare_phase(inputs) -> dict:
             rows.append({"scheme": scheme, "plane_gate": plane,
                          "matches": int(ref[28]), "max_abs_err": abs_err,
                          "max_scaled_err": scaled})
-            log(f"[compare] {scheme:21s} plane_gate={plane:.1f} matches="
+            log(f"[compare B1] {scheme:21s} plane_gate={plane:.1f} matches="
                 f"{int(ref[28])} max_abs_err={abs_err:.3e} "
                 f"max_scaled_err={scaled:.3e} (tolerance {SUM_TOL:.0e})")
             if scaled > SUM_TOL:
@@ -148,47 +187,183 @@ def compare_phase(inputs) -> dict:
             "max_scaled_err": worst_scaled, "tolerance": SUM_TOL}
 
 
-def run_sequence(loader, frames, dev):
-    cfg = acceptance.champion_configs()["aggregated"]
+def run_sequence(name, loader, frames, dev, log_iters=None):
+    """One run of the champion `name` over the frames, each fed with the
+    previous frame's pose as its prior (the batched path chains it on the
+    device instead).  `log_iters` collects each step's iteration count."""
+    cfg = acceptance.champion_configs()[name]
     odom = ICPFrameToModel(cfg, projector=loader.projector(), device=dev)
+    if log_iters is not None:
+        step = odom._step
+
+        def counted(*args):
+            out = step(*args)
+            log_iters.append(out[4][1])
+            return out
+        odom._step = counted
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    last = None
     for f in frames:
-        odom.process_next_frame(dict(f))
+        d = dict(f) if last is None else dict(f, init_rpose=last)
+        odom.process_next_frame(d)
+        last = d.get("odometry_pose")
     odom.finish()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    return odom.get_relative_poses(), elapsed
+    return odom, odom.get_relative_poses(), elapsed
 
 
-def main_path_phase(loader, frames, dev) -> dict:
-    n = len(frames)
-    expected = acceptance.champion_configs()["aggregated"].max_num_alignments * (n - 1)
-    b1.assoc_gn.launches = 0
-    rel, elapsed = run_sequence(loader, frames, dev)
-    launches = b1.assoc_gn.launches
-    log(f"[main] {n} frames in {elapsed:.2f} s (first run, includes set-up); "
-        f"assoc_gn launches {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError(f"assoc_gn launched {launches} times, expected {expected}")
+def score(name, rel, loader, n) -> dict:
+    """tr_err / ATE against ground truth; fails on lost tracking or a miss
+    of the round's bar."""
     if rel.shape != (n, 4, 4) or not np.all(np.isfinite(rel)):
-        raise AssertionError("relative poses are not finite (n, 4, 4)")
+        raise AssertionError(f"{name}: relative poses are not finite (n, 4, 4)")
     gt_rel = loader.get_ground_truth("synth_00")[:n]
     ate, ate_std = ev.compute_ate(rel, gt_rel)
     tr_err, rot_err, _ = ev.compute_kitti_metrics(ev.compute_absolute_poses(rel),
                                                   ev.compute_absolute_poses(gt_rel))
+    if tr_err is None:
+        raise AssertionError(f"{name}: the run is too short for tr_err")
     ref = np.load(ROOT / "tests" / "fixtures" / "reference_e2e.npz")
-    log(f"[main] tr_err {100 * tr_err:.4f}% rot_err {rot_err:.3e} rad/m "
-        f"ATE {ate:.5f} m (std {ate_std:.5f}); reference bars: kd-tree "
-        f"{100 * float(ref['kdtree_tr_err']):.4f}%, projective "
-        f"{100 * float(ref['projective_tr_err']):.4f}% (asserted in a later PR)")
+    bar = float(ref["kdtree_tr_err"]) + BAR_PT
+    log(f"[{name}] tr_err {100 * tr_err:.4f}% rot_err {rot_err:.3e} rad/m "
+        f"ATE {ate:.5f} m (std {ate_std:.5f}); bar: tr_err <= {100 * bar:.4f}% "
+        f"(reference kd-tree {100 * float(ref['kdtree_tr_err']):.4f}% + 0.1 pt), "
+        f"ATE < 0.05 m")
     if not ate < 0.05:
-        raise AssertionError(f"ATE {ate} m: tracking lost")
-    return {"frames": n, "launches": launches, "tr_err": tr_err,
-            "rot_err": rot_err, "ate_m": ate, "ate_std_m": ate_std,
-            "first_run_s": elapsed,
-            "ref_kdtree_tr_err": float(ref["kdtree_tr_err"]),
-            "ref_projective_tr_err": float(ref["projective_tr_err"])}
+        raise AssertionError(f"{name}: ATE {ate} m: tracking lost")
+    if not tr_err <= bar:
+        raise AssertionError(f"{name}: tr_err {tr_err} above the bar {bar}")
+    return {"tr_err": tr_err, "rot_err": rot_err, "ate_m": ate,
+            "ate_std_m": ate_std, "tr_err_bar": bar}
+
+
+def aggregated_phase(loader, frames, dev) -> dict:
+    n = len(frames)
+    expected = acceptance.champion_configs()["aggregated"].max_num_alignments * (n - 1)
+    b1.assoc_gn.launches = 0
+    b2.nn_argmin.launches = 0
+    _, rel, elapsed = run_sequence("aggregated", loader, frames, dev)
+    launches = b1.assoc_gn.launches
+    log(f"[aggregated] {n} frames in {elapsed:.2f} s (first run, includes "
+        f"set-up); assoc_gn launches {launches} (expected {expected}), "
+        f"nn_argmin launches {b2.nn_argmin.launches}")
+    if launches != expected:
+        raise AssertionError(f"assoc_gn launched {launches} times, expected {expected}")
+    return {"frames": n, "launches": launches, "first_run_s": elapsed,
+            **score("aggregated", rel, loader, n)}
+
+
+def surfel_phase(loader, frames, dev):
+    n = len(frames)
+    expected = acceptance.champion_configs()["surfel"].max_num_alignments * (n - 1)
+    iters = []
+    b1.assoc_gn.launches = 0
+    b2.nn_argmin.launches = 0
+    odom, rel, elapsed = run_sequence("surfel", loader, frames, dev, iters)
+    launches = b2.nn_argmin.launches
+    # every iteration the loop ran re-searched (reassoc_every = 1): those
+    # launches did work, the frozen trips' launches returned at once
+    worked = int(torch.stack(iters).sum())
+    log(f"[surfel] {n} frames in {elapsed:.2f} s (first run, includes set-up); "
+        f"nn_argmin launches {launches} (expected {expected}), {worked} of "
+        f"them active; assoc_gn launches {b1.assoc_gn.launches}")
+    if launches != expected:
+        raise AssertionError(f"nn_argmin launched {launches} times, expected {expected}")
+    if not 0 < worked <= launches:
+        raise AssertionError(f"{worked} active nn_argmin launches")
+    return odom, {"frames": n, "launches": launches, "active_launches": worked,
+                  "first_run_s": elapsed, **score("surfel", rel, loader, n)}
+
+
+def b2_inputs(odom, next_frame):
+    """The surfel map after the main path, and the next frame's grid-sampled
+    targets moved to their prior in the map's anchor frame -- what the
+    next step's first NN pass receives."""
+    cfg = odom._surfel_cfg
+    state = odom._map_state
+    points, mask, _ = am.dequant_upload(*odom._read_points(dict(next_frame)),
+                                        odom.projector)
+    targets, _, _ = sm._grid_sample_fixed(points, mask, float(cfg.target_voxel_size),
+                                          int(cfg.target_samples))
+    prior = state.anchor_from_cur @ odom.last_rpose_device
+    return se3.apply_transformation(targets, prior).contiguous(), state.points, state.valid
+
+
+def _b2_case(name, queries, model, valid, expect=None) -> dict:
+    idx, sq = b2.nn_argmin(queries, model, valid)
+    idx2, sq2 = b2.nn_argmin(queries, model, valid)
+    ridx, rsq = b2.nn_argmin_plain(queries, model, valid)
+    torch.cuda.synchronize()
+    idx, sq, idx2, sq2, ridx, rsq = (x.cpu().numpy() for x in (idx, sq, idx2, sq2,
+                                                               ridx, rsq))
+    if not (np.array_equal(idx, idx2) and np.array_equal(sq.view(np.int32),
+                                                         sq2.view(np.int32))):
+        raise AssertionError(f"B2 {name}: two kernel runs differ")
+    if not np.array_equal(idx, ridx):
+        bad = int(np.sum(idx != ridx))
+        raise AssertionError(f"B2 {name}: {bad} indices differ from the plain version")
+    finite = np.isfinite(rsq)
+    if not np.array_equal(np.isfinite(sq), finite):
+        raise AssertionError(f"B2 {name}: +inf entries differ from the plain version")
+    ulps = np.abs(sq[finite].view(np.int32).astype(np.int64)
+                  - rsq[finite].view(np.int32).astype(np.int64))
+    max_ulps = int(ulps.max()) if ulps.size else 0
+    abs_err = float(np.abs(sq[finite] - rsq[finite]).max()) if ulps.size else 0.0
+    log(f"[compare B2] {name:28s} M={len(idx)} V={len(valid)} "
+        f"identical indices, max {max_ulps} ulp, max_abs_err {abs_err:.3e} "
+        f"(tolerance {NN_ULPS} ulp)")
+    if max_ulps > NN_ULPS:
+        raise AssertionError(f"B2 {name}: {max_ulps} ulp > {NN_ULPS}")
+    if expect is not None:
+        expect(idx, sq)
+    return {"case": name, "m": len(idx), "v": len(valid), "max_ulps": max_ulps,
+            "max_abs_err": abs_err}
+
+
+def compare_b2_phase(queries, model, valid) -> dict:
+    dev = queries.device
+    rows = [_b2_case("surfel map, next frame", queries, model, valid)]
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def cloud(n, scale=20.0):
+        return (torch.randn(n, 3, generator=gen) * scale).to(dev)
+
+    base = cloud(3000)
+    dup = torch.cat([base, base, base])  # row i == i + 3000 == i + 6000
+    dup_valid = torch.ones(9000, dtype=torch.bool, device=dev)
+    dup_valid[:100] = False
+    q = base[::3] + 0.01
+
+    def lower_index_wins(idx, _):
+        rows_ = np.arange(0, 3000, 3)
+        if not np.array_equal(idx, np.where(rows_ < 100, rows_ + 3000, rows_)):
+            raise AssertionError("B2 duplicates: the lower index did not win")
+
+    def empty(idx, sq):
+        if not (np.all(idx == 0) and np.all(np.isinf(sq))):
+            raise AssertionError("B2 all-invalid map: expected index 0 and +inf")
+
+    rows.append(_b2_case("duplicate rows", q, dup, dup_valid, lower_index_wins))
+    rows.append(_b2_case("all-invalid map", q, dup, torch.zeros_like(dup_valid), empty))
+    odd_v = cloud(12345)
+    rows.append(_b2_case("odd sizes", cloud(1001), odd_v,
+                         torch.rand(12345, generator=gen).to(dev) < 0.9))
+    # the device flag: False skips the pass (index 0, +inf), True computes it
+    skip = b2.nn_argmin(queries, model, valid,
+                        active=torch.zeros((), dtype=torch.bool, device=dev))
+    run = b2.nn_argmin(queries, model, valid,
+                       active=torch.ones((), dtype=torch.bool, device=dev))
+    full = b2.nn_argmin(queries, model, valid)
+    if not (bool((skip[0] == 0).all()) and bool(torch.isinf(skip[1]).all())):
+        raise AssertionError("B2 active=False did not skip the pass")
+    if not (torch.equal(run[0], full[0]) and torch.equal(run[1], full[1])):
+        raise AssertionError("B2 active=True differs from the unflagged call")
+    log("[compare B2] active flag: False skips the pass, True equals the unflagged call")
+    return {"cases": rows, "max_ulps": max(r["max_ulps"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "tolerance_ulps": NN_ULPS}
 
 
 def time_calls(fn, calls: int) -> float:
@@ -204,31 +379,47 @@ def time_calls(fn, calls: int) -> float:
     return start.elapsed_time(end) / calls
 
 
-def times_phase(inputs, loader, frames, dev, card: str) -> dict:
-    args = (*inputs, 1, 2, 0.6, "geman_mcclure", 0.4, 0.0)
-    kernel = lambda: b1.assoc_gn(*args)
-    plain = lambda: b1.assoc_gn_plain(*args)
-    for _ in range(20):  # warm-up
+def time_pair(name, kernel, plain, card, calls, shape) -> dict:
+    """Kernel vs plain per call, in the order plain/kernel/kernel/plain."""
+    for _ in range(3):  # warm-up
         kernel(), plain()
-    order = [("plain", plain), ("kernel", kernel), ("kernel", kernel), ("plain", plain)]
     runs = {"kernel": [], "plain": []}
-    for name, fn in order:
-        runs[name].append(time_calls(fn, TIMED_CALLS))
+    for which, fn in [("plain", plain), ("kernel", kernel), ("kernel", kernel),
+                      ("plain", plain)]:
+        runs[which].append(time_calls(fn, calls[which]))
     k_ms, p_ms = float(np.mean(runs["kernel"])), float(np.mean(runs["plain"]))
-    log(f"[times] {card}: assoc_gn kernel {1000 * k_ms:.1f} us/call "
-        f"(runs {[round(1000 * x, 1) for x in runs['kernel']]}), plain "
-        f"{1000 * p_ms:.1f} us/call (runs {[round(1000 * x, 1) for x in runs['plain']]}), "
-        f"64x1024, {TIMED_CALLS} calls per run, order plain/kernel/kernel/plain")
+    log(f"[times] {card}: {name} kernel {1000 * k_ms:.1f} us/call (runs "
+        f"{[round(1000 * x, 1) for x in runs['kernel']]}), plain {1000 * p_ms:.1f} "
+        f"us/call (runs {[round(1000 * x, 1) for x in runs['plain']]}), {shape}, "
+        f"{calls['kernel']} / {calls['plain']} calls per run, order "
+        f"plain/kernel/kernel/plain")
+    return {"kernel_ms": k_ms, "plain_ms": p_ms, "kernel_runs_ms": runs["kernel"],
+            "plain_runs_ms": runs["plain"]}
+
+
+def time_sequence(name, loader, frames, dev, card) -> dict:
     rates = []
     for _ in range(SEQ_REPEATS):
-        _, elapsed = run_sequence(loader, frames, dev)
+        _, _, elapsed = run_sequence(name, loader, frames, dev)
         rates.append(len(frames) / elapsed)
-    log(f"[times] {card}: port scans/s over the {len(frames)}-frame sequence "
+    log(f"[times] {card}: {name} scans/s over the {len(frames)}-frame sequence "
         f"(host encode + upload + device, warm): median {np.median(rates):.2f}, "
         f"runs {[round(r, 2) for r in rates]}")
-    return {"kernel_ms": k_ms, "plain_ms": p_ms, "kernel_runs_ms": runs["kernel"],
-            "plain_runs_ms": runs["plain"], "scans_per_s": rates,
-            "scans_per_s_median": float(np.median(rates))}
+    return {"scans_per_s": rates, "scans_per_s_median": float(np.median(rates))}
+
+
+def times_phase(b1_inputs, b2_args, loader, frames, dev, card) -> dict:
+    b1_args = (*b1_inputs, 1, 2, 0.6, "geman_mcclure", 0.4, 0.0)
+    out = {"assoc_gn": time_pair(
+        "assoc_gn", lambda: b1.assoc_gn(*b1_args), lambda: b1.assoc_gn_plain(*b1_args),
+        card, {"kernel": TIMED_CALLS, "plain": TIMED_CALLS}, "64x1024 window 1x2")}
+    out["aggregated"] = time_sequence("aggregated", loader, frames, dev, card)
+    m, v = b2_args[0].shape[0], b2_args[1].shape[0]
+    out["nn_argmin"] = time_pair(
+        "nn_argmin", lambda: b2.nn_argmin(*b2_args), lambda: b2.nn_argmin_plain(*b2_args),
+        card, B2_TIMED_CALLS, f"M={m} V={v}")
+    out["surfel"] = time_sequence("surfel", loader, frames, dev, card)
+    return out
 
 
 def main() -> int:
@@ -242,23 +433,31 @@ def main() -> int:
     log(f"[device] {card} | torch {torch.__version__} CUDA {torch.version.cuda}")
 
     build = build_phase()
-    loader, frames = load_sequence()
-    inputs = kernel_inputs(loader, frames, dev)
-    compare = compare_phase(inputs)
-    main_run = main_path_phase(loader, frames, dev)
-    times = times_phase(inputs, loader, frames, dev, card)
+    loader, frames, next_frame = load_sequence()
+    b1_in = kernel_inputs(loader, frames, dev)
+    compare_b1 = compare_b1_phase(b1_in)
+    aggregated = aggregated_phase(loader, frames, dev)
+    odom, surfel = surfel_phase(loader, frames, dev)
+    b2_in = b2_inputs(odom, next_frame)
+    compare_b2 = compare_b2_phase(*b2_in)
+    times = times_phase(b1_in, b2_in, loader, frames, dev, card)
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build": build, "compare": compare, "main": main_run,
+        {"card": card, "build": build, "compare_b1": compare_b1,
+         "compare_b2": compare_b2, "aggregated": aggregated, "surfel": surfel,
          "times": times}, indent=1))
 
-    print(json.dumps({"kernels": [{
-        "name": "assoc_gn", "route": "cuda", "source": build["source"],
-        "replaces": "pylidar_slam_tpu/ops/pallas/assoc_gn_kernel.py:169",
-        "launches": main_run["launches"], "max_abs_err": compare["max_abs_err"],
-        "ms": times["kernel_ms"], "plain_ms": times["plain_ms"]}]}))
+    kernels = []
+    for kname, run, compare in (("assoc_gn", aggregated, compare_b1),
+                                ("nn_argmin", surfel, compare_b2)):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": build["sources"][kname],
+            "replaces": REPLACES[kname], "launches": run["launches"],
+            "max_abs_err": compare["max_abs_err"], "ms": times[kname]["kernel_ms"],
+            "plain_ms": times[kname]["plain_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -5,10 +5,11 @@ reference): module paths mirror the JAX package so each function's
 counterpart is found at the same place.  The package imports ``torch`` and
 never ``jax``; only the tests import both.
 
-Slice 1 covers the aggregated-map frame-to-model ICP odometry
-(``slam.odometry.icp_odometry.ICPFrameToModel`` in aggregated mode), with the
-fused window-association + normal-equation kernel in CUDA
-(``ops.kernels.assoc_gn``).  Branches not ported yet raise
+``slam.odometry.icp_odometry.ICPFrameToModel`` runs the frame-to-model ICP
+odometry with the aggregated map, on the fused window-association +
+normal-equation kernel in CUDA (``ops.kernels.assoc_gn``), and with the
+surfel ("kdtree") map, on the exact 1-NN kernel in CUDA
+(``ops.kernels.nn_argmin``).  Branches not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 

@@ -1,5 +1,5 @@
-"""The acceptance sequence and the aggregated champion configuration (port of
-the part of ``pylidar_slam_tpu.eval.acceptance`` the aggregated slice needs).
+"""The acceptance sequence and the champion configurations (port of the part
+of ``pylidar_slam_tpu.eval.acceptance`` the ported slices need).
 
 The JAX package's ``bench.build_icp_config("aggregated", "rimg8")`` is
 pinned equal to the same configuration.
@@ -15,6 +15,18 @@ def champion_configs():
     from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import \
         ICPFrameToModelConfig
     return {
+        # Surfel champion: the surfel ("kdtree") map, exact NN (kernel B2)
+        # re-searched every iteration, cross-frame k-NN map normals,
+        # neighborhood weights with sigma 0.2, per-frame float32 uploads.
+        "surfel": ICPFrameToModelConfig(
+            max_num_alignments=20, reassoc_every=1,
+            local_map={"type": "kdtree_local_map", "local_map_size": 30,
+                       "points_per_frame": 4096, "sample_voxel_size": 0.3,
+                       "levenberg_damping": 0.0, "normals_mode": "knn"},
+            alignment={"gauss_newton_config": {"scheme": "neighborhood",
+                                               "sigma": 0.2,
+                                               "max_iters": 1}},
+            num_points_padded=65536, data_key="numpy_pc"),
         # Motion-gated schedule (8 GN iterations, re-rasterize on > 0.2 m of
         # motion), window 1x2 gated at 0.6 m, geman_mcclure sigma 0.4,
         # batched rimg8 uploads (2 B/pixel z-buffered ranges).

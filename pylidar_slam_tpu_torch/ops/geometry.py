@@ -1,8 +1,10 @@
 """Vertex-map geometry (torch port of ``pylidar_slam_tpu.ops.geometry``):
-the box-filtered covariance normal map.  Channels-last ``(H, W, 3)``.
+the box-filtered covariance normal map (channels-last ``(H, W, 3)``) and the
+k-NN plane normals of the surfel map.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -79,3 +81,64 @@ def compute_normal_map(vertex_map: torch.Tensor, kernel_size: int = 5) -> torch.
     n = torch.where(ok[..., None], n, torch.zeros_like(n))
     null_pixel = point_norm(vertex_map)[..., None] == 0.0
     return torch.where(null_pixel, torch.zeros_like(n), n)
+
+
+def smallest_eigenvector_3x3(m: torch.Tensor, eps: float = 1.0e-9) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of batched symmetric
+    (..., 3, 3) matrices, in closed form: the eigenvalues from the
+    trigonometric solution of the characteristic cubic, the eigenvector from
+    the column space of ``(A - l1 I)(A - l2 I)``.  Near-isotropic matrices
+    (plane undefined) give zeros."""
+    a00, a11, a22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    a01, a02, a12 = m[..., 0, 1], m[..., 0, 2], m[..., 1, 2]
+    q = (a00 + a11 + a22) / 3.0
+    p1 = a01 ** 2 + a02 ** 2 + a12 ** 2
+    p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2.0 * p1
+    p = torch.sqrt(torch.clamp(p2, min=0.0) / 6.0)
+    safe_p = torch.where(p > eps, p, torch.ones_like(p))
+    eye = torch.eye(3, dtype=m.dtype, device=m.device)
+    b = (m - q[..., None, None] * eye) / safe_p[..., None, None]
+    det_b = (b[..., 0, 0] * (b[..., 1, 1] * b[..., 2, 2] - b[..., 1, 2] * b[..., 2, 1])
+             - b[..., 0, 1] * (b[..., 1, 0] * b[..., 2, 2] - b[..., 1, 2] * b[..., 2, 0])
+             + b[..., 0, 2] * (b[..., 1, 0] * b[..., 2, 1] - b[..., 1, 1] * b[..., 2, 0]))
+    r = torch.clamp(det_b / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    l1 = q + 2.0 * p * torch.cos(phi)  # largest
+    l3 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)  # smallest
+    l2 = 3.0 * q - l1 - l3
+
+    prod = (m - l1[..., None, None] * eye) @ (m - l2[..., None, None] * eye)
+    col_norms = torch.linalg.vector_norm(prod, dim=-2)  # (..., 3) per column
+    best = torch.argmax(col_norms, dim=-1)
+    v = torch.gather(prod, -1, best[..., None, None].expand(*m.shape[:-2], 3, 1))[..., 0]
+    norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    ok = (p > eps)[..., None] & (norm > eps)
+    unit = v / torch.where(norm > eps, norm, torch.ones_like(norm))
+    return torch.where(ok, unit, torch.zeros_like(unit))
+
+
+def knn_plane_normals(neighbors: torch.Tensor, valid: torch.Tensor,
+                      min_neighbors: int = 3) -> torch.Tensor:
+    """Per-query plane normal from k gathered neighbours: the smallest
+    eigenvector of the valid neighbours' sample covariance.  ``neighbors``
+    (M, k, 3) with validity (M, k); queries with fewer than
+    ``min_neighbors`` valid neighbours get a zero normal."""
+    w = valid.to(neighbors.dtype)[..., None]  # (M, k, 1)
+    count = torch.clamp(torch.sum(w, dim=1), min=1.0)  # (M, 1)
+    # The sums over the k neighbours run in neighbour order, the covariance
+    # as a multiply-add chain: on the CPU that rounds as the JAX package's
+    # reduction and einsum do, and a near-degenerate covariance decides its
+    # eigenvector on such roundings.
+    weighted = neighbors * w
+    total = weighted[:, 0]
+    for j in range(1, weighted.shape[1]):
+        total = total + weighted[:, j]
+    mean = total / count
+    centered = (neighbors - mean[:, None, :]) * w
+    cov = torch.zeros(centered.shape[:1] + (3, 3), dtype=centered.dtype,
+                      device=centered.device)
+    for j in range(centered.shape[1]):
+        cov = torch.addcmul(cov, centered[:, j, :, None], centered[:, j, None, :])
+    n = smallest_eigenvector_3x3(cov / count[..., None])
+    enough = torch.sum(valid, dim=1) >= min_neighbors
+    return torch.where(enough[:, None], n, torch.zeros_like(n))

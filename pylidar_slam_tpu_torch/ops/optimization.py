@@ -85,6 +85,18 @@ def point_to_plane_jacobian(params: torch.Tensor,
     return jac
 
 
+def point_to_plane_at_identity(points: torch.Tensor, ref_points: torch.Tensor,
+                               ref_normals: torch.Tensor,
+                               mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``point_to_plane_residuals`` and ``point_to_plane_jacobian`` at the
+    zero pose delta, where T = I: r = (p - q) . n and J = [n, p x n], without
+    building the pose matrix and its derivative (kernel B1 forms them so)."""
+    res = torch.sum((points - ref_points) * ref_normals, dim=-1)
+    jac = torch.cat([ref_normals, torch.linalg.cross(points, ref_normals)], dim=-1)
+    return (torch.where(mask, res, torch.zeros_like(res)),
+            torch.where(mask[:, None], jac, torch.zeros_like(jac)))
+
+
 # ----------------------------------------------------------------------------
 # Gauss-Newton
 # ----------------------------------------------------------------------------
@@ -108,12 +120,17 @@ def solve_normal_equations(h: torch.Tensor, g: torch.Tensor,
 
 def gauss_newton_step(res: torch.Tensor, jac: torch.Tensor,
                       weights: torch.Tensor,
-                      det_threshold: float = 1.0e-7):
+                      det_threshold: float = 1.0e-7,
+                      damping: float = 0.0):
     """One weighted GN step from residuals (N,), Jacobian (N, 6), weights
-    (N,).  Returns (dx (6,), loss, singular)."""
+    (N,).  `damping` > 0 adds the Levenberg term ``damping * trace(H) / 6 *
+    I`` before the solve.  Returns (dx (6,), loss, singular)."""
     wres = res * weights
     wjac = jac * weights[:, None]
     h = torch.sum(wjac[:, :, None] * wjac[:, None, :], dim=0)
     g = torch.sum(wjac * wres[:, None], dim=0)
+    if damping > 0.0:
+        h = h + (damping * torch.trace(h) / 6.0) * torch.eye(
+            6, dtype=h.dtype, device=h.device)
     dx, singular = solve_normal_equations(h, g, det_threshold)
     return dx, torch.sum(wres * wres), singular

@@ -34,7 +34,9 @@ def inverse_pose_matrix(matrices: torch.Tensor) -> torch.Tensor:
     inv = torch.zeros_like(matrices)
     inv[..., :3, :3] = rt
     inv[..., :3, 3] = -(rt @ matrices[..., :3, 3:4])[..., 0]
-    inv[..., 3, 3] = 1.0
+    # a slice, not a 0-dim element: setting a 0-dim CUDA view from a Python
+    # number copies a host scalar and syncs; a slice is filled on the device
+    inv[..., 3:, 3] = 1.0
     return inv
 
 

@@ -87,9 +87,26 @@ def agg_state_to_numpy(state: AggMapState) -> Dict[str, np.ndarray]:
             for name, t in zip(AggMapState._fields, state)}
 
 
-def _select_state(cond: torch.Tensor, a: AggMapState, b: AggMapState) -> AggMapState:
-    """Per-field torch.where(cond, a, b) for a scalar bool tensor."""
-    return AggMapState(*[torch.where(cond, x, y) for x, y in zip(a, b)])
+def select_state(cond: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
+    """Per-field torch.where(cond, a, b) of two map states, for a scalar
+    bool tensor: both branches of a JAX ``lax.cond``, selected on the
+    device."""
+    return type(a)(*[torch.where(cond, x, y) for x, y in zip(a, b)])
+
+
+def dequant_upload(points: torch.Tensor, mask: torch.Tensor,
+                   proj: projection.SphericalProjection):
+    """Expands an upload to float32 meters and its validity mask; the third
+    return is True when the points are PIXEL-ORDERED (row-major, one per
+    pixel), so an insert can reshape instead of re-rasterizing."""
+    if points.dtype == torch.uint8 and points.shape[-1] == 2:
+        points, pvalid = projection.decode_range_image(points, proj)
+        return points, mask & pvalid, True
+    if points.dtype == torch.float32:
+        return points, mask & (torch.amax(torch.abs(points), dim=-1) > 0), False
+    raise NotImplementedError(
+        f"upload of {points.dtype} x {points.shape[-1]}: only rimg8 and f32 "
+        f"are ported (ROADMAP.md, 'What the port leaves out')")
 
 
 # ----------------------------------------------------------------------------
@@ -294,20 +311,6 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
             "model_normals is not ported yet: ROADMAP.md A.5b")
     _check_normals_fit(nrm_fit)
 
-    def dequant(points: torch.Tensor, mask: torch.Tensor):
-        """Expands the upload to float32 meters and its validity mask; the
-        third return is True when the points are PIXEL-ORDERED (row-major,
-        one per pixel), so the insert path can reshape instead of
-        re-rasterizing."""
-        if points.dtype == torch.uint8 and points.shape[-1] == 2:
-            points, pvalid = projection.decode_range_image(points, proj)
-            return points, mask & pvalid, True
-        if points.dtype == torch.float32:
-            return points, mask & (torch.amax(torch.abs(points), dim=-1) > 0), False
-        raise NotImplementedError(
-            f"upload of {points.dtype} x {points.shape[-1]}: only rimg8 and f32 "
-            f"are ported (ROADMAP.md, 'What the port leaves out')")
-
     def anneal_at(start: float, end: float, it: int) -> float:
         """Geometric interpolation from `start` down to `end` over the first
         `gn_sigma_anneal_iters` iterations (host float: the iteration index
@@ -392,7 +395,7 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
              points: torch.Tensor, mask: torch.Tensor, init_rpose: torch.Tensor):
         """Full frame: register + thresholded insert.  Returns
         (state', delta', rpose, pose_params, (loss, iters, matches, inserted))."""
-        points, mask, pixel_ordered = dequant(points, mask)
+        points, mask, pixel_ordered = dequant_upload(points, mask, proj)
         t_init = state.anchor_from_cur @ init_rpose
         t_final, it, loss, matches = register(state, points, mask, t_init)
 
@@ -409,14 +412,14 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
         vmap, nmap, rimg = scan_images(points, mask, pixel_ordered)
         inserted = insert_scan(state, vmap, nmap, rimg,
                                se3.inverse_pose_matrix(t_final), proj, max_age)
-        state = _select_state(insert, inserted,
-                              state._replace(anchor_from_cur=t_final))
+        state = select_state(insert, inserted,
+                             state._replace(anchor_from_cur=t_final))
         eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
         delta_out = torch.where(insert, eye, new_delta)
         return state, delta_out, rpose, pose_params, (loss, it, matches, insert)
 
     def first_frame(state: AggMapState, points: torch.Tensor, mask: torch.Tensor):
-        points, mask, pixel_ordered = dequant(points, mask)
+        points, mask, pixel_ordered = dequant_upload(points, mask, proj)
         vmap, nmap, rimg = scan_images(points, mask, pixel_ordered)
         eye = torch.eye(4, dtype=points.dtype, device=points.device)
         return insert_scan(state, vmap, nmap, rimg, eye, proj, max_age)

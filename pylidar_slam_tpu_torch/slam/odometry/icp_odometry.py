@@ -1,5 +1,6 @@
 """Frame-to-Model ICP odometry (torch port of
-``pylidar_slam_tpu.slam.odometry.icp_odometry``), aggregated-map mode.
+``pylidar_slam_tpu.slam.odometry.icp_odometry``), in the aggregated-map and
+surfel ("kdtree_local_map") modes.
 
 The host wrapper keeps the reference's ``data_dict`` key contract
 (``init_rpose`` in, ``odometry_pose`` / ``odometry_pc`` out).  Frames are
@@ -20,7 +21,11 @@ import torch
 from pylidar_slam_tpu_torch.config import MISSING, dataclass_from_dict
 from pylidar_slam_tpu_torch.ops import bev, projection
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
+from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.utils import assert_debug
+
+# Local maps still to port, with their ROADMAP.md items.
+_UNPORTED_MAPS = {"voxel_local_map": "A.11", "projective_local_map": "A.12"}
 
 
 # ----------------------------------------------------------------------------
@@ -138,10 +143,13 @@ class ICPFrameToModel:
 
         lm_dict = config.local_map if isinstance(config.local_map, dict) else {}
         mode = lm_dict.get("type", "projective_local_map")
-        if mode != "aggregated_local_map":
+        if mode in _UNPORTED_MAPS:
             raise NotImplementedError(
-                f"local_map.type='{mode}' is not ported yet: ROADMAP.md A.13 "
-                f"(with the map itself, A.10-A.12)")
+                f"local_map.type='{mode}' is not ported yet: ROADMAP.md "
+                f"{_UNPORTED_MAPS[mode]}")
+        assert_debug(mode in ("aggregated_local_map", "kdtree_local_map"),
+                     f"Unknown local_map type '{mode}'")
+        self._mode = mode
         fmt = str(config.upload_format or "f32")
         if fmt not in ("f32", "rimg8"):
             raise NotImplementedError(
@@ -156,40 +164,66 @@ class ICPFrameToModel:
         gn_cfg = dataclass_from_dict(
             GaussNewtonConfig, align_cfg.get("gauss_newton_config", {}))
 
-        agg_cfg = dataclass_from_dict(am.AggregatedLocalMapConfig, lm_dict)
-        self.local_map_size = int(agg_cfg.local_map_size)
-        self._step, self._first, self._batch_step = am.make_agg_icp_frame_step(
-            proj=projector,
-            map_cfg=agg_cfg,
-            max_num_alignments=int(config.max_num_alignments),
-            reassoc_every=int(config.reassoc_every or 3),
-            reassoc_motion_m=float(config.reassoc_motion_m or 0.0),
-            threshold_delta_pose=float(config.threshold_delta_pose),
-            threshold_trans=float(config.threshold_trans),
-            threshold_rot=float(config.threshold_rot),
-            gn_scheme=gn_cfg.scheme,
-            gn_sigma=float(gn_cfg.sigma),
-            gn_eps=float(gn_cfg.eps),
-            gn_sigma_start=float(gn_cfg.sigma_start or 0.0),
-            gn_sigma_anneal_iters=int(gn_cfg.sigma_anneal_iters or 0),
-            max_dist_to_plane=float(gn_cfg.max_dist_to_plane or 0.0),
-            beta_location_consistency=float(gn_cfg.beta_location_consistency or 0.0),
-            beta_constant_velocity=float(gn_cfg.beta_constant_velocity or 0.0),
-            beta_small_velocity=float(gn_cfg.beta_small_velocity or 0.0),
-            beta_orientation_consistency=float(
-                gn_cfg.beta_orientation_consistency or 0.0),
-            upload_quantization=float(config.upload_quantization or 0.0),
-            deskew=bool(align_cfg.get("deskew", False)),
-            elastic=bool(align_cfg.get("elastic", False)),
-            alignment_mode=str(align_cfg.get("mode", "point_to_plane_gauss_newton")),
-        )
+        if mode == "kdtree_local_map":
+            self._surfel_cfg = dataclass_from_dict(sm.SurfelRingMapConfig, lm_dict)
+            self.local_map_size = int(self._surfel_cfg.local_map_size)
+            self._step, self._first, self._batch_step = \
+                sm.make_surfel_icp_frame_step(
+                    proj=projector,
+                    map_cfg=self._surfel_cfg,
+                    reassoc_every=int(config.reassoc_every or 1),
+                    reassoc_motion_m=float(config.reassoc_motion_m or 0.0),
+                    max_num_alignments=int(config.max_num_alignments),
+                    threshold_delta_pose=float(config.threshold_delta_pose),
+                    threshold_trans=float(config.threshold_trans),
+                    threshold_rot=float(config.threshold_rot),
+                    gn_scheme=gn_cfg.scheme,
+                    gn_sigma=float(gn_cfg.sigma),
+                    gn_eps=float(gn_cfg.eps),
+                    upload_quantization=float(config.upload_quantization or 0.0))
+        else:
+            agg_cfg = dataclass_from_dict(am.AggregatedLocalMapConfig, lm_dict)
+            self.local_map_size = int(agg_cfg.local_map_size)
+            self._step, self._first, self._batch_step = am.make_agg_icp_frame_step(
+                proj=projector,
+                map_cfg=agg_cfg,
+                max_num_alignments=int(config.max_num_alignments),
+                reassoc_every=int(config.reassoc_every or 3),
+                reassoc_motion_m=float(config.reassoc_motion_m or 0.0),
+                threshold_delta_pose=float(config.threshold_delta_pose),
+                threshold_trans=float(config.threshold_trans),
+                threshold_rot=float(config.threshold_rot),
+                gn_scheme=gn_cfg.scheme,
+                gn_sigma=float(gn_cfg.sigma),
+                gn_eps=float(gn_cfg.eps),
+                gn_sigma_start=float(gn_cfg.sigma_start or 0.0),
+                gn_sigma_anneal_iters=int(gn_cfg.sigma_anneal_iters or 0),
+                max_dist_to_plane=float(gn_cfg.max_dist_to_plane or 0.0),
+                beta_location_consistency=float(gn_cfg.beta_location_consistency or 0.0),
+                beta_constant_velocity=float(gn_cfg.beta_constant_velocity or 0.0),
+                beta_small_velocity=float(gn_cfg.beta_small_velocity or 0.0),
+                beta_orientation_consistency=float(
+                    gn_cfg.beta_orientation_consistency or 0.0),
+                upload_quantization=float(config.upload_quantization or 0.0),
+                deskew=bool(align_cfg.get("deskew", False)),
+                elastic=bool(align_cfg.get("elastic", False)),
+                alignment_mode=str(align_cfg.get("mode", "point_to_plane_gauss_newton")),
+            )
         self.init()
 
     # -- lifecycle ----------------------------------------------------------
 
     def init(self):
-        h, w = self.projector.height, self.projector.width
-        self._map_state = am.init_agg_map(h, w, self.device)
+        if self._mode == "kdtree_local_map":
+            cfg = self._surfel_cfg
+            use_hash = str(cfg.nn_backend) == "hash"
+            self._map_state = sm.init_surfel_map(
+                self.local_map_size, int(cfg.points_per_frame), self.device,
+                hash_buckets=int(cfg.hash_buckets) if use_hash else 0,
+                hash_capacity=int(cfg.hash_capacity) if use_hash else 0)
+        else:
+            h, w = self.projector.height, self.projector.width
+            self._map_state = am.init_agg_map(h, w, self.device)
         self._delta_since_update = torch.eye(4, dtype=torch.float32,
                                              device=self.device)
         # Device-side pose log: (k, 6) params per flush, fetched once.
@@ -244,12 +278,15 @@ class ICPFrameToModel:
         return mat
 
     def _maybe_bootstrap(self, data_dict: dict, init_pose: torch.Tensor,
-                         informative: bool, fallback=None):
+                         fallback=None):
         """Swaps an uninformative (identity) frame-1 init for the EI
         estimate; a caller-supplied real prior wins."""
         if self._iter != 1 or not bool(self.config.ei_bootstrap) \
                 or self._boot_cloud is None:
             return init_pose
+        eye = torch.eye(4, dtype=init_pose.dtype, device=init_pose.device)
+        # frame 1 only: this reads the prior back to the host
+        informative = float(torch.abs(init_pose - eye).max()) > 1e-5
         boot = None if informative else self._ei_bootstrap_pose(data_dict, fallback)
         self._boot_cloud = None
         return init_pose if boot is None else boot
@@ -349,17 +386,13 @@ class ICPFrameToModel:
                 self._boot_cloud = self._boot_cloud_of(data_dict)
             return
 
-        init_np = data_dict.get("init_rpose", None)
-        if init_np is None:
-            init_pose = torch.eye(4, dtype=torch.float32, device=self.device)
-            informative = False
-        else:
-            init_host = init_np.cpu().numpy() if isinstance(init_np, torch.Tensor) \
-                else np.asarray(init_np)
-            informative = float(np.abs(init_host - np.eye(4)).max()) > 1e-5
-            init_pose = torch.as_tensor(init_host, dtype=torch.float32,
-                                        device=self.device)
-        init_pose = self._maybe_bootstrap(data_dict, init_pose, informative)
+        # The caller's prior (e.g. the previous frame's pose, still on the
+        # device) is used as it is: no host round trip per frame.
+        init = data_dict.get("init_rpose", None)
+        init_pose = torch.eye(4, dtype=torch.float32, device=self.device) \
+            if init is None else torch.as_tensor(init, dtype=torch.float32,
+                                                 device=self.device)
+        init_pose = self._maybe_bootstrap(data_dict, init_pose)
 
         (self._map_state, self._delta_since_update, rpose, pose_params,
          _diag) = self._step(self._map_state, self._delta_since_update,

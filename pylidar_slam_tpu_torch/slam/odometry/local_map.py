@@ -1,5 +1,5 @@
 """Local-map configs (torch port of the part of
-``pylidar_slam_tpu.slam.odometry.local_map`` the aggregated map needs).
+``pylidar_slam_tpu.slam.odometry.local_map`` the ported maps need).
 
 The projective ring-buffer map is ROADMAP.md A.12.
 """

@@ -5,15 +5,18 @@ This file imports no jax, so it runs on a machine with a card and no jax:
     python -m pytest tests/test_torch_gpu.py --noconftest -m gpu -q
 
 Without a CUDA device every test skips (decided inside the fixture).
-Tolerance: each sum within 2e-5 of its Cauchy-Schwarz scale
+Tolerances: B1, each sum within 2e-5 of its Cauchy-Schwarz scale
 (``assoc_gn.sum_errors``; float32 sums of 65536 terms in two tree orders),
-the match count exact.
+the match count exact.  B2 forms the same float32 sums in the same order
+as its plain version: identical indices, squared distances within 2 ulp
+(expected bit-identical).
 """
 import numpy as np
 import pytest
 import torch
 
 from pylidar_slam_tpu_torch.ops.kernels import assoc_gn as b1
+from pylidar_slam_tpu_torch.ops.kernels import nn_argmin as b2
 
 H, W = 64, 1024
 
@@ -83,3 +86,79 @@ def test_failed_build_raises_on_cuda_tensors(cuda, monkeypatch, tmp_path):
     finally:
         b1._library.cache_clear()
     assert b1.assoc_gn.launches == before
+
+
+def _assert_nn_matches_plain(queries, model, valid):
+    before = b2.nn_argmin.launches
+    idx, sq = b2.nn_argmin(queries, model, valid)
+    idx2, sq2 = b2.nn_argmin(queries, model, valid)
+    assert b2.nn_argmin.launches == before + 2
+    ridx, rsq = b2.nn_argmin_plain(queries, model, valid)
+    assert idx.dtype == torch.int32 and sq.dtype == torch.float32
+    assert torch.equal(idx, idx2) and torch.equal(sq, sq2)  # bit-repeatable
+    assert torch.equal(idx, ridx)
+    idx, sq, rsq = idx.cpu().numpy(), sq.cpu().numpy(), rsq.cpu().numpy()
+    finite = np.isfinite(rsq)
+    assert np.array_equal(np.isfinite(sq), finite)
+    ulps = np.abs(sq[finite].view(np.int32).astype(np.int64)
+                  - rsq[finite].view(np.int32).astype(np.int64))
+    assert ulps.size == 0 or ulps.max() <= 2
+    return idx, sq
+
+
+def _nn_case(dev, m, v, seed=0, frac_valid=0.9):
+    rng = np.random.default_rng(seed)
+    model = (rng.normal(size=(v, 3)) * 20).astype(np.float32)
+    queries = (model[rng.integers(0, v, size=m)]
+               + rng.normal(size=(m, 3)).astype(np.float32) * 0.3)
+    valid = rng.random(v) < frac_valid
+    return [torch.from_numpy(a).to(dev) for a in (queries, model, valid)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,v", [(16384, 122880), (1001, 12345), (1, 1), (300, 7)])
+def test_nn_argmin_kernel_matches_plain(cuda, m, v):
+    """The surfel champion's shapes, and sizes that are no multiple of the
+    kernel's tiles."""
+    idx, _ = _assert_nn_matches_plain(*_nn_case(cuda, m, v))
+    assert idx.min() >= 0 and idx.max() < v
+
+
+@pytest.mark.gpu
+def test_nn_argmin_duplicates_and_empty_map(cuda):
+    queries, model, valid = _nn_case(cuda, 1000, 3000)
+    dup = torch.cat([model, model, model])  # row i == i + 3000 == i + 6000
+    dup_valid = torch.cat([valid, torch.ones_like(valid), torch.ones_like(valid)])
+    idx, _ = _assert_nn_matches_plain(model[::3] + 0.01, dup, dup_valid)
+    rows = np.arange(0, 3000, 3)
+    assert np.array_equal(idx, np.where(valid.cpu().numpy()[rows], rows, rows + 3000))
+    idx, sq = _assert_nn_matches_plain(queries, dup, torch.zeros_like(dup_valid))
+    assert np.all(idx == 0) and np.all(np.isinf(sq))
+
+
+@pytest.mark.gpu
+def test_nn_argmin_active_flag(cuda):
+    """False skips the pass without a host sync (index 0, +inf); True
+    computes it; both launch the kernel."""
+    args = _nn_case(cuda, 4096, 20000)
+    before = b2.nn_argmin.launches
+    idx, sq = b2.nn_argmin(*args, active=torch.zeros((), dtype=torch.bool, device=cuda))
+    assert bool((idx == 0).all()) and bool(torch.isinf(sq).all())
+    on = b2.nn_argmin(*args, active=torch.ones((), dtype=torch.bool, device=cuda))
+    full = b2.nn_argmin(*args)
+    assert torch.equal(on[0], full[0]) and torch.equal(on[1], full[1])
+    assert b2.nn_argmin.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_nn_argmin_rejects_bad_inputs(cuda):
+    queries, model, valid = _nn_case(cuda, 64, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        b2.nn_argmin(queries.t().contiguous().t(), model, valid)
+    with pytest.raises(ValueError, match="float32"):
+        b2.nn_argmin(queries.double(), model, valid)
+    with pytest.raises(ValueError, match="bool"):
+        b2.nn_argmin(queries, model, valid.to(torch.uint8))
+    with pytest.raises(ValueError, match="active"):
+        b2.nn_argmin(queries, model, valid, active=torch.ones(2, dtype=torch.bool,
+                                                              device=cuda))

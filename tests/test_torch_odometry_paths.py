@@ -84,7 +84,7 @@ def test_per_frame_path_matches_jax(frames, upload_format):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(local_map={"type": "kdtree_local_map"}), "A.13"),
+    (dict(local_map={"type": "voxel_local_map"}), "A.11"),
     (dict(upload_format="rimg16"), "leaves out"),
     (dict(upload_quantization=0.01), "leaves out"),
     (dict(alignment={"mode": "point_to_point_gauss_newton"}), "A.5b"),

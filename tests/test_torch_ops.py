@@ -370,3 +370,23 @@ def test_eval_metrics_vs_fixture(fx):
     assert tev.compute_kitti_metrics(pred, gt) [:2] == jev.compute_kitti_metrics(pred, gt)[:2]
     assert math.isclose(tev.compute_ate(pred, gt)[0], jev.compute_ate(pred, gt)[0],
                         rel_tol=0, abs_tol=0)
+
+
+def test_point_to_plane_at_identity_vs_jax():
+    """The surfel map's residuals and Jacobian at the zero pose delta against
+    the JAX package's general composite at params = 0."""
+    rng = np.random.default_rng(12)
+    pts = (rng.normal(size=(500, 3)) * 20).astype(np.float32)
+    ref = pts + rng.normal(size=(500, 3)).astype(np.float32) * 0.1
+    nrm = rng.normal(size=(500, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    mask = rng.random(500) < 0.8
+    zero = jnp.zeros(6, jnp.float32)
+    with jax.enable_x64(False):
+        jres = jopt.point_to_plane_residuals(zero, *map(jnp.asarray, (pts, ref, nrm, mask)))
+        jjac = jopt.point_to_plane_jacobian(zero, *map(jnp.asarray, (pts, nrm, mask)))
+    res, jac = topt.point_to_plane_at_identity(*map(_t, (pts, ref, nrm, mask)))
+    np.testing.assert_array_equal(res.numpy(), np.asarray(jres))
+    # the cross product rounds once per term; the composite's einsum may fuse
+    np.testing.assert_allclose(jac.numpy(), np.asarray(jjac), rtol=0, atol=1e-5)
+    assert np.all(jac.numpy()[~mask] == 0)
