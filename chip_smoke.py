@@ -25,10 +25,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    work, scoring tr_err / ATE;
 6. B2 vs plain: kernel B2 (``nn_argmin``) against its plain version on the
    surfel map left by phase 5 and the next frame's 16384 grid-sampled
-   targets at its prior, plus a map with duplicate rows, an all-invalid map
-   and odd sizes;
-7. times: each kernel vs its plain version per call (CUDA events), and each
-   path's steady-state scans/s over the sequence.
+   targets at its prior, plus a map with duplicate rows, an all-invalid map,
+   odd sizes and the cases planted at the kernel's seams
+   (``ops/kernels/seams.py``: exact ties across sub-tile, tile and split
+   boundaries, empty sub-tiles, M and V off the kernel's multiples);
+7. times: each kernel's device time per call (N calls captured in a CUDA
+   graph, replayed under CUDA events), its wall time per call (back-to-back
+   calls under CUDA events, which for B1 is the host's enqueue), its plain
+   version's, B2's library yardstick (``torch.cdist`` + min) and each
+   kernel's bound from this run's inputs; each path's steady-state scans/s
+   over the sequence.
+
+With ``--compare DIR`` (repeatable; DIR holds another checkout of the
+package, e.g. an earlier commit unpacked by ``git archive``), a last phase
+times B1 and B2 of that checkout against this one's on phase 7's inputs by
+device time, in the order other / this / this / other, each in a process of
+its own (``utils/device_timing.py``, which loads that checkout's own
+wrappers and kernel sources), after checking that both give the same
+results.
 
 The last line of stdout is the JSON result; the line before it holds the
 card's name and power limit, and the one before that the kernels' numbers.
@@ -36,7 +50,9 @@ Details go to build/chip_smoke.json (git-ignored).
 """
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,11 +69,13 @@ from pylidar_slam_tpu_torch.eval import eval_odometry as ev
 from pylidar_slam_tpu_torch.ops import projection, se3
 from pylidar_slam_tpu_torch.ops.kernels import assoc_gn as b1
 from pylidar_slam_tpu_torch.ops.kernels import nn_argmin as b2
+from pylidar_slam_tpu_torch.ops.kernels import seams
 from pylidar_slam_tpu_torch.ops.kernels.cuda_build import CSRC
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
-from pylidar_slam_tpu_torch.utils import native
+from pylidar_slam_tpu_torch.utils import device_timing, native
+from pylidar_slam_tpu_torch.utils.device_timing import graph_ms, time_calls
 
 ROOT = Path(__file__).resolve().parent
 SCHEMES = ["least_square", "default", "huber", "exp", "neighborhood",
@@ -68,11 +86,19 @@ PLANE_GATES = [0.0, 0.1]
 # match count exactly.
 SUM_TOL = 2e-5
 # B2 and its plain version form the same float32 sums in the same order:
-# indices identical, squared distances within NN_ULPS units in the last
-# place (expected bit-identical).
-NN_ULPS = 2
+# indices identical, squared distances bit-identical (0 ulp).
+NN_ULPS = 0
 TIMED_CALLS = 200
 B2_TIMED_CALLS = {"kernel": 100, "plain": 10}
+# calls captured in one CUDA graph for a kernel's device time
+GRAPH_CALLS = {"assoc_gn": 200, "nn_argmin": 100}
+REPEAT_CALLS = 200  # B1 calls that must give bit-identical sums
+# The H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W).
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# float32 operations per (query, model point) pair of B2: 3 subtractions,
+# 3 products, 2 adds.
+NN_PAIR_FLOPS = 8
 SEQ_REPEATS = 3
 # The round's accuracy bar: the reference kd-tree run's tr_err + 0.1 pt.
 BAR_PT = 0.001
@@ -93,20 +119,20 @@ def card_line() -> str:
 
 def build_phase() -> dict:
     """One nvcc per kernel source and the host encoder, started together."""
-    def timed(fn):
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
+        out = fn(*args)
+        return time.perf_counter() - t0, out
 
     def encoder():
         if native.get_lib() is None:
             raise RuntimeError("native host encoder did not build")
 
-    with ThreadPoolExecutor(3) as pool:
-        futures = {"assoc_gn": pool.submit(timed, b1.build),
-                   "nn_argmin": pool.submit(timed, b2.build),
-                   "native": pool.submit(timed, encoder)}
-        secs = {name: f.result() for name, f in futures.items()}
+    jobs = {"assoc_gn": (b1.build,), "nn_argmin": (b2.build,), "native": (encoder,)}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
+        done = {name: f.result() for name, f in futures.items()}
+    secs = {name: t for name, (t, _) in done.items()}
     log("[build] " + ", ".join(f"{n} {t:.2f} s" for n, t in secs.items())
         + " (in parallel)")
     for report in sorted((ROOT / "build" / "kernels").glob("*.log")):
@@ -183,8 +209,33 @@ def compare_b1_phase(inputs) -> dict:
                                      f"scaled error {scaled} > {SUM_TOL}")
             worst_abs = max(worst_abs, abs_err)
             worst_scaled = max(worst_scaled, scaled)
-    return {"cases": rows, "max_abs_err": worst_abs,
-            "max_scaled_err": worst_scaled, "tolerance": SUM_TOL}
+    dev = inputs[0].device
+    # matches across the azimuth wrap, beyond the border rows and on the
+    # kernel's strip edges; W off the strip width
+    for (h, w), region in [((64, 1024), "wrap columns"), ((64, 1024), "border rows"),
+                           ((64, 1024), "strip edges"), ((16, 1000), "all")]:
+        images = [torch.from_numpy(a).to(dev) for a in seams.assoc_seam_images(h, w, region)]
+        args = (*images, wr, wc, gate, "geman_mcclure", 0.4, 0.0)
+        ours, ref = (x.cpu().numpy() for x in (b1.assoc_gn(*args), b1.assoc_gn_plain(*args)))
+        abs_err, scaled = b1.sum_errors(ours, ref)
+        log(f"[compare B1] seams {region:12s} {h}x{w} matches={int(ref[28])} "
+            f"max_abs_err={abs_err:.3e} max_scaled_err={scaled:.3e}")
+        if ours[28] != ref[28] or not ref[28] > 0 or scaled > SUM_TOL:
+            raise AssertionError(f"B1 seams {region} {h}x{w}: matches {ours[28]} vs "
+                                 f"{ref[28]}, scaled error {scaled}")
+        rows.append({"scheme": "geman_mcclure", "seams": region, "shape": [h, w],
+                     "matches": int(ref[28]), "max_abs_err": abs_err,
+                     "max_scaled_err": scaled})
+        worst_abs, worst_scaled = max(worst_abs, abs_err), max(worst_scaled, scaled)
+    # the last-block counter is back at 0 after every call
+    args = (*inputs, wr, wc, gate, "geman_mcclure", 0.4, 0.0)
+    first = b1.assoc_gn(*args)
+    outs = torch.stack([b1.assoc_gn(*args) for _ in range(REPEAT_CALLS)])
+    if not torch.equal(outs, first.expand_as(outs)):
+        raise AssertionError(f"B1: {REPEAT_CALLS} consecutive calls differ")
+    log(f"[compare B1] {REPEAT_CALLS} consecutive calls: bit-identical sums")
+    return {"cases": rows, "max_abs_err": worst_abs, "max_scaled_err": worst_scaled,
+            "tolerance": SUM_TOL, "repeat_calls_identical": REPEAT_CALLS}
 
 
 def run_sequence(name, loader, frames, dev, log_iters=None):
@@ -350,6 +401,19 @@ def compare_b2_phase(queries, model, valid) -> dict:
     odd_v = cloud(12345)
     rows.append(_b2_case("odd sizes", cloud(1001), odd_v,
                          torch.rand(12345, generator=gen).to(dev) < 0.9))
+    # exact ties across sub-tile, tile and split boundaries, empty sub-tiles
+    # and tiles, M and V off the kernel's multiples
+    for m, v in [(16384, 122880), (16384 + 77, 122880 - 100), (1000, 12345),
+                 (513, 257), (1, 300)]:
+        case = seams.nn_seam_case(m, v)
+
+        def ties_keep_the_lower_index(idx, _, case=case):
+            if not np.array_equal(idx[case.tie_rows], case.tie_index):
+                raise AssertionError(f"B2 seams M={m} V={v}: a tie did not go to "
+                                     "the lower index")
+        rows.append(_b2_case("seams", *(torch.from_numpy(a).to(dev) for a in
+                                        (case.queries, case.model, case.valid)),
+                             ties_keep_the_lower_index))
     # the device flag: False skips the pass (index 0, +inf), True computes it
     skip = b2.nn_argmin(queries, model, valid,
                         active=torch.zeros((), dtype=torch.bool, device=dev))
@@ -366,35 +430,114 @@ def compare_b2_phase(queries, model, valid) -> dict:
             "tolerance_ulps": NN_ULPS}
 
 
-def time_calls(fn, calls: int) -> float:
-    """Mean ms per call over `calls` back-to-back calls, CUDA events."""
+def _device_kernels(fn, calls: int):
+    """(kernels per call, summed device ms per call) of `fn`'s device work
+    by torch.profiler, or (None, None) when the profiler sees no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, None
+    total_us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+                   for e in kernels)
+    return len(kernels) / calls, total_us / 1000.0 / calls
 
 
-def time_pair(name, kernel, plain, card, calls, shape) -> dict:
-    """Kernel vs plain per call, in the order plain/kernel/kernel/plain."""
-    for _ in range(3):  # warm-up
+def device_time(name, fn, calls) -> dict:
+    """Device ms per call by graph replay; torch.profiler's kernel sums if
+    the capture fails (the record names the method).  Also the kernels the
+    call launches, as the profiler counts them."""
+    per_call, prof_ms = _device_kernels(fn, 10)
+    try:
+        runs, method = graph_ms(fn, calls), f"CUDA graph of {calls} calls, replayed"
+    except RuntimeError as e:
+        log(f"[times] {name}: graph capture failed ({e}); torch.profiler kernel sums")
+        if prof_ms is None:
+            raise AssertionError(f"{name}: no device time: capture failed and the "
+                                 "profiler saw no kernels") from e
+        runs, method = [prof_ms], "torch.profiler kernel sums over 10 calls"
+    return {"runs_ms": runs, "ms": float(np.mean(runs)), "method": method,
+            "kernels_per_call": per_call, "profiler_ms": prof_ms}
+
+
+def _turns(name, fns, timer) -> dict:
+    """`timer` over the callables `fns` (a dict of two) in the order
+    a, b, b, a; mean per name."""
+    (a, fa), (b, fb) = fns.items()
+    runs = {a: [], b: []}
+    for which, fn in [(a, fa), (b, fb), (b, fb), (a, fa)]:
+        runs[which].append(timer(fn))
+    return {k: {"runs": v, "mean": float(np.mean(v))} for k, v in runs.items()}
+
+
+def b1_bound(timg, xyz, nrm, valid, sums, wr=1, wc=2) -> dict:
+    """The least time of one B1 call on these inputs: each input byte read
+    once and the 30 sums written once, against 3.35 TB/s; 8 float32
+    operations per candidate distance of a valid target pixel and ~90 per
+    match (residual, Jacobian, weight, the 30 products and sums), against
+    67 TFLOP/s."""
+    nbytes = sum(t.numel() * t.element_size() for t in (timg, xyz, nrm, valid)) + 4 * b1.NUM_OUT
+    targets = int((timg.abs().amax(dim=-1) > 0).sum())
+    flops = targets * (2 * wr + 1) * (2 * wc + 1) * 8 + int(sums[28]) * 90
+    return _bound(nbytes, flops)
+
+
+def b2_bound(queries, model, valid) -> dict:
+    """The least time of one B2 pass on these inputs: NN_PAIR_FLOPS per
+    (query, valid model point) pair against 67 TFLOP/s (invalid rows need
+    no arithmetic), and each input byte read once and the outputs written
+    once against 3.35 TB/s."""
+    m, v = queries.shape[0], model.shape[0]
+    nbytes = 12 * m + 12 * v + v + 8 * m
+    flops = NN_PAIR_FLOPS * m * int(valid.sum())
+    return _bound(nbytes, flops)
+
+
+def _bound(nbytes, flops) -> dict:
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": by_bytes, "ops_ms": by_ops,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def kernel_times(name, kernel, plain, library, bound, card, shape) -> dict:
+    """Device time (graph replay) and wall time per call of the kernel, its
+    plain version's wall time and the library yardstick's."""
+    dev_t = device_time(name, kernel, GRAPH_CALLS[name])
+    out = {"device": dev_t}
+    wall_calls = {"assoc_gn": {"kernel": TIMED_CALLS, "plain": TIMED_CALLS},
+                  "nn_argmin": B2_TIMED_CALLS}[name]
+    for _ in range(2):  # warm-up
         kernel(), plain()
-    runs = {"kernel": [], "plain": []}
-    for which, fn in [("plain", plain), ("kernel", kernel), ("kernel", kernel),
-                      ("plain", plain)]:
-        runs[which].append(time_calls(fn, calls[which]))
-    k_ms, p_ms = float(np.mean(runs["kernel"])), float(np.mean(runs["plain"]))
-    log(f"[times] {card}: {name} kernel {1000 * k_ms:.1f} us/call (runs "
-        f"{[round(1000 * x, 1) for x in runs['kernel']]}), plain {1000 * p_ms:.1f} "
-        f"us/call (runs {[round(1000 * x, 1) for x in runs['plain']]}), {shape}, "
-        f"{calls['kernel']} / {calls['plain']} calls per run, order "
-        f"plain/kernel/kernel/plain")
-    return {"kernel_ms": k_ms, "plain_ms": p_ms, "kernel_runs_ms": runs["kernel"],
-            "plain_runs_ms": runs["plain"]}
+    wall = _turns(name, {"plain": plain, "kernel": kernel},
+                  lambda fn: time_calls(fn, wall_calls["kernel" if fn is kernel else "plain"]))
+    out["wall_ms"], out["plain_ms"] = wall["kernel"]["mean"], wall["plain"]["mean"]
+    out["wall_runs_ms"], out["plain_runs_ms"] = wall["kernel"]["runs"], wall["plain"]["runs"]
+    out["library_ms"] = None
+    if library is not None:
+        library()
+        out["library_ms"] = time_calls(library, 3)
+        torch.cuda.empty_cache()
+    out.update(bound)
+    out["roofline_share"] = bound["bound_ms"] / dev_t["ms"]
+    lib_txt = ("none" if out["library_ms"] is None
+               else f"{1000 * out['library_ms']:.1f} us")
+    log(f"[times] {card}: {name} {shape}: device {1000 * dev_t['ms']:.2f} us/call "
+        f"(runs {[round(1000 * x, 2) for x in dev_t['runs_ms']]}, {dev_t['method']}; "
+        f"profiler: {dev_t['kernels_per_call']} kernels/call, "
+        f"{dev_t['profiler_ms']} ms/call); wall {1000 * out['wall_ms']:.1f} us/call "
+        f"(runs {[round(1000 * x, 1) for x in out['wall_runs_ms']]}); plain "
+        f"{1000 * out['plain_ms']:.1f} us/call; library {lib_txt}; bound "
+        f"{1000 * bound['bound_ms']:.3f} us by {bound['bound_by']} ({bound['bytes']} B, "
+        f"{bound['flops']} FLOP), roofline share {out['roofline_share']:.3f}")
+    return out
 
 
 def time_sequence(name, loader, frames, dev, card) -> dict:
@@ -408,18 +551,74 @@ def time_sequence(name, loader, frames, dev, card) -> dict:
     return {"scans_per_s": rates, "scans_per_s_median": float(np.median(rates))}
 
 
+B1_PARAMS = (1, 2, 0.6, "geman_mcclure", 0.4, 0.0)  # window 1x2, the main path's
+
+
 def times_phase(b1_inputs, b2_args, loader, frames, dev, card) -> dict:
-    b1_args = (*b1_inputs, 1, 2, 0.6, "geman_mcclure", 0.4, 0.0)
-    out = {"assoc_gn": time_pair(
+    b1_args = (*b1_inputs, *B1_PARAMS)
+    sums = b1.assoc_gn(*b1_args)
+    out = {"assoc_gn": kernel_times(
         "assoc_gn", lambda: b1.assoc_gn(*b1_args), lambda: b1.assoc_gn_plain(*b1_args),
-        card, {"kernel": TIMED_CALLS, "plain": TIMED_CALLS}, "64x1024 window 1x2")}
+        None, b1_bound(*b1_inputs, sums), card, "64x1024 window 1x2")}
     out["aggregated"] = time_sequence("aggregated", loader, frames, dev, card)
     m, v = b2_args[0].shape[0], b2_args[1].shape[0]
-    out["nn_argmin"] = time_pair(
+    queries, model, valid = b2_args
+    masked = torch.where(valid[:, None], model, torch.full_like(model, math.inf))
+
+    def library():  # the yardstick: one PyTorch call, never used by the port
+        return torch.cdist(queries, masked,
+                           compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
+
+    out["nn_argmin"] = kernel_times(
         "nn_argmin", lambda: b2.nn_argmin(*b2_args), lambda: b2.nn_argmin_plain(*b2_args),
-        card, B2_TIMED_CALLS, f"M={m} V={v}")
+        library, b2_bound(*b2_args), card, f"M={m} V={v}")
     out["surfel"] = time_sequence("surfel", loader, frames, dev, card)
     return out
+
+
+def compare_phase(others, b1_inputs, b2_args, card) -> list:
+    """B1 and B2 of each other checkout against this one's on the same
+    inputs, by device time per call in the order other / this / this /
+    other, each run in a process of its own that loads its checkout's own
+    wrappers and kernels; fails unless both give the same results."""
+    work = ROOT / "build" / "compare"
+    work.mkdir(parents=True, exist_ok=True)
+    inputs = work / "inputs.pt"
+    torch.save({"b1": [t.cpu() for t in b1_inputs], "b1_params": list(B1_PARAMS),
+                "b2": [t.cpu() for t in b2_args], "calls": GRAPH_CALLS}, inputs)
+    rows = []
+    for other in others:
+        runs, results = {"other": [], "this": []}, {}
+        for i, (which, root) in enumerate([("other", other), ("this", ROOT),
+                                           ("this", ROOT), ("other", other)]):
+            out = work / f"run{i}.pt"
+            proc = subprocess.run([sys.executable, "-P", device_timing.__file__, str(root),
+                                   str(inputs), str(out)], capture_output=True, text=True,
+                                  timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"timing {root} failed:\n{proc.stderr[-4000:]}")
+            results[which] = torch.load(out)
+            runs[which].append(results[which]["device_ms"])
+        o, t = results["other"], results["this"]
+        scaled = b1.sum_errors(t["sums"].numpy(), o["sums"].numpy())[1]
+        if float(o["sums"][28]) != float(t["sums"][28]) or scaled > SUM_TOL:
+            raise AssertionError(f"B1 of {other} differs: scaled error {scaled}")
+        if not (torch.equal(o["idx"], t["idx"]) and torch.equal(o["sq"], t["sq"])):
+            raise AssertionError(f"B2 of {other} differs from this checkout's")
+        row = {"other": str(other), "b1_bit_identical": torch.equal(o["sums"], t["sums"]),
+               "b1_scaled_err": scaled}
+        for name in GRAPH_CALLS:
+            row[name] = {which: [float(np.mean(r[name])) for r in rs]
+                         for which, rs in runs.items()}
+            row[name + "_replays"] = {which: [r[name] for r in rs] for which, rs in runs.items()}
+            log(f"[compare] {card}: {name} device us per call ({GRAPH_CALLS[name]} calls "
+                f"per graph), in turns other/this/this/other: {other} "
+                f"{[round(1000 * x, 3) for x in row[name]['other']]}, this checkout "
+                f"{[round(1000 * x, 3) for x in row[name]['this']]}")
+        log(f"[compare] {other}: B1 sums agree (scaled error {scaled:.3e}, bit-identical "
+            f"{row['b1_bit_identical']}), B2 indices and distances identical")
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -427,6 +626,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    parser = argparse.ArgumentParser(description="Card-side smoke run of the port.")
+    parser.add_argument("--compare", type=Path, action="append", default=[],
+                        help="another checkout of the package (e.g. an earlier commit "
+                             "unpacked by git archive) whose kernels are timed against "
+                             "this one's; repeatable")
+    args = parser.parse_args()
     dev = torch.device("cuda", 0)
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -441,22 +646,28 @@ def main() -> int:
     b2_in = b2_inputs(odom, next_frame)
     compare_b2 = compare_b2_phase(*b2_in)
     times = times_phase(b1_in, b2_in, loader, frames, dev, card)
+    compare = compare_phase(args.compare, b1_in, b2_in, card)
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "compare_b1": compare_b1,
          "compare_b2": compare_b2, "aggregated": aggregated, "surfel": surfel,
-         "times": times}, indent=1))
+         "times": times, "compare": compare}, indent=1))
 
     kernels = []
-    for kname, run, compare in (("assoc_gn", aggregated, compare_b1),
-                                ("nn_argmin", surfel, compare_b2)):
+    for kname, run, result in (("assoc_gn", aggregated, compare_b1),
+                               ("nn_argmin", surfel, compare_b2)):
+        t = times[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": build["sources"][kname],
             "replaces": REPLACES[kname], "launches": run["launches"],
-            "max_abs_err": compare["max_abs_err"], "ms": times[kname]["kernel_ms"],
-            "plain_ms": times[kname]["plain_ms"]})
+            "max_abs_err": result["max_abs_err"], "ms": t["wall_ms"],
+            "device_ms": t["device"]["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "roofline_share": t["roofline_share"], "library_ms": t["library_ms"]})
+        if "active_launches" in run:
+            kernels[-1]["active_launches"] = run["active_launches"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

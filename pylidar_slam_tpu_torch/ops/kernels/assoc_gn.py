@@ -153,13 +153,24 @@ def _library() -> ctypes.CDLL:
     lib.assoc_gn_launch.restype = ctypes.c_int
     lib.assoc_gn_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3)
+        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 4)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _counter(device_index: int) -> torch.Tensor:
+    """The kernel's last-block ticket counter on a device: zeroed once here,
+    and left at 0 by every pass (the port runs one stream per device)."""
+    return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", device_index))
 
 
 def build() -> None:
     """Builds and loads the kernel library (raises BuildError on failure)."""
     _library()
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def _check(timg, model_xyz, model_normal, model_valid):
@@ -202,12 +213,13 @@ def assoc_gn(timg: torch.Tensor, model_xyz: torch.Tensor,
     partials = torch.empty(lib.assoc_gn_partials_size(h, w),
                            dtype=torch.float32, device=timg.device)
     out = torch.empty(NUM_OUT, dtype=torch.float32, device=timg.device)
+    counter = _counter(_device_index(timg.device))
     err = lib.assoc_gn_launch(
         timg.data_ptr(), model_xyz.data_ptr(), model_normal.data_ptr(),
         model_valid.data_ptr(), h, w, int(wr), int(wc),
         float(max_nd) * float(max_nd), SCHEME_IDS[scheme], float(sigma),
         float(sigma) ** 2, float(plane_gate), float(eps),
-        partials.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), counter.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(timg.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"assoc_gn launch failed with cudaError_t {err}")

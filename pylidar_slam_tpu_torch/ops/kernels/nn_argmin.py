@@ -50,12 +50,23 @@ def nn_argmin_plain(queries: torch.Tensor, model: torch.Tensor,
 def _library() -> ctypes.CDLL:
     from pylidar_slam_tpu_torch.ops.kernels.cuda_build import load_kernel_library
     lib = load_kernel_library("nn_argmin")
-    lib.nn_argmin_splits.restype = ctypes.c_int
+    for fn in (lib.nn_argmin_splits, lib.nn_argmin_padded_rows):
+        fn.restype = ctypes.c_int
     lib.nn_argmin_splits.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nn_argmin_padded_rows.argtypes = [ctypes.c_int]
     lib.nn_argmin_launch.restype = ctypes.c_int
     lib.nn_argmin_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_shape(m: int, v: int, device_index: int) -> Tuple[int, int]:
+    """(V splits, packed model rows) for M queries and V model points on
+    the device: the split count follows the card's SM count."""
+    lib = _library()
+    with torch.cuda.device(device_index):
+        return lib.nn_argmin_splits(m, v), lib.nn_argmin_padded_rows(v)
 
 
 def build() -> None:
@@ -114,14 +125,16 @@ def nn_argmin(queries: torch.Tensor, model: torch.Tensor,
     if m == 0:
         return idx, sq
     lib = _library()
-    splits = lib.nn_argmin_splits(m, v)
+    splits, rows = _scratch_shape(m, v, dev.index if dev.index is not None
+                                  else torch.cuda.current_device())
+    packed = torch.empty((rows, 4), dtype=torch.float32, device=dev)
     part_d = torch.empty((splits * m,), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits * m,), dtype=torch.int32, device=dev)
     err = lib.nn_argmin_launch(
         queries.data_ptr(), model.data_ptr(), model_valid.data_ptr(),
         None if active is None else active.data_ptr(), m, v, splits,
-        part_d.data_ptr(), part_i.data_ptr(), idx.data_ptr(), sq.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        packed.data_ptr(), part_d.data_ptr(), part_i.data_ptr(), idx.data_ptr(),
+        sq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nn_argmin launch failed with cudaError_t {err}")
     nn_argmin.launches += 1

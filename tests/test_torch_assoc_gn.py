@@ -20,6 +20,7 @@ from pylidar_slam_tpu.ops.pallas.assoc_gn_kernel import window_assoc_gn_pallas
 from pylidar_slam_tpu.slam.odometry import aggregated_map as jam
 
 from pylidar_slam_tpu_torch.ops.kernels import assoc_gn as k
+from pylidar_slam_tpu_torch.ops.kernels import seams
 from pylidar_slam_tpu_torch.utils.build import BuildError
 
 H, W = 16, 256
@@ -54,7 +55,7 @@ def _jax_composite(timg, model_xyz, normals, mvalid, sigma, gate, plane_gate,
                    scheme, plane):
     """The JAX main path's iteration (aggregated_map.py:426-501) up to the
     normal equations, in the kernel's 30-sum layout."""
-    state = jam.init_agg_map(H, W)._replace(
+    state = jam.init_agg_map(timg.shape[0], timg.shape[1])._replace(
         xyz=model_xyz, normal=normals, rng=jnp.where(mvalid, 1.0, 0.0))
     ref, nrm, ok, sq_d = jam.window_associate(state, timg, 1, 2, gate)
     tp = timg.reshape(-1, 3)
@@ -122,6 +123,24 @@ def test_plain_matches_pallas_kernel_interpret(scheme, sigma):
         ref = np.asarray(ref)
         np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-4,
                                    atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("h,w", [(16, 256), (8, 300)])
+@pytest.mark.parametrize("region", ["wrap columns", "border rows", "strip edges", "all"])
+def test_plain_matches_jax_on_the_kernel_seams(region, h, w):
+    """Matches across the azimuth wrap, beyond the border rows and on the
+    CUDA kernel's strip edges (ops/kernels/seams.py), where only those
+    pixels carry a target; W = 300 leaves a ragged strip."""
+    timg, model_xyz, normals, mvalid = seams.assoc_seam_images(h, w, region)
+    with jax.enable_x64(False):
+        ref = np.asarray(_jax_composite(
+            *map(jnp.asarray, (timg, model_xyz, normals, mvalid)),
+            jnp.float32(0.4), jnp.float32(0.6), jnp.float32(0.0),
+            scheme="geman_mcclure", plane=False))
+    ours = k.assoc_gn_plain(*map(torch.from_numpy, (timg, model_xyz, normals, mvalid)),
+                            1, 2, 0.6, "geman_mcclure", 0.4)
+    assert ref[28] > 0
+    _assert_sums_close(ours.numpy(), ref)
 
 
 def test_window_associate_matches_jax():

@@ -37,6 +37,7 @@ from pylidar_slam_tpu_torch.ops import icp3d as ticp3d
 from pylidar_slam_tpu_torch.ops import optimization as topt
 from pylidar_slam_tpu_torch.ops import voxel as tvox
 from pylidar_slam_tpu_torch.ops.kernels import nn_argmin as b2
+from pylidar_slam_tpu_torch.ops.kernels import seams
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as tsm
 from pylidar_slam_tpu_torch.utils.build import BuildError
 
@@ -96,6 +97,39 @@ def test_plain_ties_and_empty_map():
     ji, js = _jax_nn(q, model, np.zeros(len(model), bool))
     assert np.all(ti == 0) and np.all(np.isinf(ts))
     assert np.array_equal(ti, ji) and np.array_equal(ts, js)
+
+
+@pytest.mark.parametrize("m,v", [(600, 3000), (513, 257), (1, 300), (100, 1000)])
+def test_plain_matches_jax_on_the_kernel_seams(m, v):
+    """The cases planted at the CUDA kernel's seams (ops/kernels/seams.py):
+    exact ties across sub-tile, tile and split boundaries and at the last
+    row, an all-invalid sub-tile and tile.  The reference and the plain
+    version agree on every index (the lower one on each tie) and within
+    2 ulp on every distance."""
+    case = seams.nn_seam_case(m, v)
+    ti, ts = _torch_nn(case.queries, case.model, case.valid)
+    ji, js = _jax_nn(case.queries, case.model, case.valid)
+    assert np.array_equal(ti, ji)
+    assert np.array_equal(ti[case.tie_rows], case.tie_index)
+    finite = np.isfinite(js)
+    assert np.array_equal(np.isfinite(ts), finite)
+    ulps = np.abs(ts[finite].view(np.int32).astype(np.int64)
+                  - js[finite].astype(np.float32).view(np.int32).astype(np.int64))
+    assert ulps.size == 0 or ulps.max() <= 2
+
+
+def test_seam_case_plants_what_it_says():
+    case = seams.nn_seam_case(600, 3000)
+    sub, tile = seams.NN_SUB, seams.NN_TILE
+    assert not case.valid[3 * sub:4 * sub].any()
+    assert not case.valid[2 * tile:3 * tile].any()
+    assert case.valid[:3 * sub].any() and case.valid[4 * sub:2 * tile].any()
+    tied = {int(a) for a in case.tie_index}
+    assert {sub - 1, tile - 1, 2 * tile - 1} <= tied  # the lower copy of each pair
+    for row, index in zip(case.tie_rows, case.tie_index):
+        same = np.all(case.model == case.model[index], axis=1) & case.valid
+        assert same.sum() >= 1 and np.flatnonzero(same)[0] == index
+        assert np.abs(case.queries[row] - case.model[index]).max() < 0.01
 
 
 def test_plain_matches_pallas_kernel_interpret():
