@@ -29,12 +29,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    odd sizes and the cases planted at the kernel's seams
    (``ops/kernels/seams.py``: exact ties across sub-tile, tile and split
    boundaries, empty sub-tiles, M and V off the kernel's multiples);
-7. times: each kernel's device time per call (N calls captured in a CUDA
+7. highway: the ``aggregated_highway`` profile (merged-model normal
+   refits with the centered fit, batch 12, rimg8) over the 60-frame
+   2 m/frame sequence at 64x1024, counting B1's launches (12 x 59) and
+   holding tr_err to the JAX package's 0.95%;
+8. ct_icp: the ``ct_icp`` profile (elastic warp, mid-sweep poses, plane
+   gate, beta priors; f32 uploads) over the 100-frame rolling-shutter
+   sequence at 64x1024, then the same run with the warp off: B1's launches
+   (12 x 99), ATE < 0.12 m on the reported mid-sweep poses, and the elastic
+   tr_err on the scan-start surface (the ground truth's) below the rigid
+   one;
+9. profiles: the other four CT-ICP profiles (``ct_icp_robust_shaky`` on
+   B1's generic window) and the aggregated champion with point-to-point GN,
+   procrustes and deskew, 20 frames each of that sequence: finite poses
+   and B1's launch count (0 for the point-to-point modes);
+   every path of phases 7-9 then runs one more step under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the step),
+   and the highway and ct_icp paths three steps under ``torch.profiler``
+   (kernels and device ms per step) and under a wall clock (the device's
+   idle share of a step);
+10. times: each kernel's device time per call (N calls captured in a CUDA
    graph, replayed under CUDA events), its wall time per call (back-to-back
    calls under CUDA events, which for B1 is the host's enqueue), its plain
    version's, B2's library yardstick (``torch.cdist`` + min) and each
-   kernel's bound from this run's inputs; each path's steady-state scans/s
-   over the sequence.
+   kernel's bound from this run's inputs; each champion's steady-state
+   scans/s over the sequence.
 
 With ``--compare DIR`` (repeatable; DIR holds another checkout of the
 package, e.g. an earlier commit unpacked by ``git archive``), a last phase
@@ -51,8 +70,10 @@ Details go to build/chip_smoke.json (git-ignored).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -102,6 +123,11 @@ NN_PAIR_FLOPS = 8
 SEQ_REPEATS = 3
 # The round's accuracy bar: the reference kd-tree run's tr_err + 0.1 pt.
 BAR_PT = 0.001
+# The JAX package's pins for the profiles: tests/test_high_speed.py:231 and
+# tests/test_slam_e2e.py:331.
+HIGHWAY_TR_ERR = 0.0095
+CT_ICP_ATE_M = 0.12
+PROFILE_FRAMES = 20
 REPLACES = {"assoc_gn": "pylidar_slam_tpu/ops/pallas/assoc_gn_kernel.py:169",
             "nn_argmin": "pylidar_slam_tpu/ops/pallas/nn_kernel.py:76"}
 
@@ -142,19 +168,27 @@ def build_phase() -> dict:
                         for name in ("assoc_gn", "nn_argmin")}}
 
 
-def load_sequence():
-    """The 140-frame acceptance sequence plus the frame after it (the
-    trajectory is drawn frame by frame, so its first 140 frames are the
-    acceptance sequence's)."""
-    n = acceptance.SEQ_KW["num_frames"]
+def load_frames(kw: dict, extra: int = 0):
+    """A synthetic sequence's loader and frames, plus `extra` frames after
+    it (the trajectory is drawn frame by frame, so the first frames are the
+    sequence's own)."""
     loader = SyntheticDatasetLoader(SyntheticConfig(
-        **dict(acceptance.SEQ_KW, num_frames=n + 1)))
+        **dict(kw, num_frames=kw["num_frames"] + extra)))
     ds = loader.sequences()[0][0][0]
     t0 = time.perf_counter()
-    frames = [ds[i] for i in range(n + 1)]
-    log(f"[setup] {len(frames)} frames generated on the host in "
+    # frames are independent (each seeds its own noise); numpy's array
+    # passes of the raycaster release the interpreter lock
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        frames = list(pool.map(ds.__getitem__, range(len(ds))))
+    log(f"[setup] {len(frames)} frames of {kw} generated on the host in "
         f"{time.perf_counter() - t0:.1f} s")
-    return loader, frames[:n], frames[n]
+    return loader, frames
+
+
+def load_sequence():
+    """The 140-frame acceptance sequence plus the frame after it."""
+    loader, frames = load_frames(acceptance.SEQ_KW, extra=1)
+    return loader, frames[:-1], frames[-1]
 
 
 def kernel_inputs(loader, frames, dev):
@@ -227,6 +261,21 @@ def compare_b1_phase(inputs) -> dict:
                      "matches": int(ref[28]), "max_abs_err": abs_err,
                      "max_scaled_err": scaled})
         worst_abs, worst_scaled = max(worst_abs, abs_err), max(worst_scaled, scaled)
+    # the generic-window build: ct_icp_robust_shaky's 2x3 window at its first
+    # trip's 3 m gate and its plane gate, and its last trip's 1 m gate
+    for g_wr, g_wc, g_gate, plane in [(2, 3, 3.0, 0.8), (2, 3, 1.0, 0.8)]:
+        args = (*inputs, g_wr, g_wc, g_gate, "neighborhood", 0.2, plane)
+        ours, ref = (x.cpu().numpy() for x in (b1.assoc_gn(*args), b1.assoc_gn_plain(*args)))
+        abs_err, scaled = b1.sum_errors(ours, ref)
+        log(f"[compare B1] window {g_wr}x{g_wc} gate {g_gate} plane_gate {plane} "
+            f"matches={int(ref[28])} max_abs_err={abs_err:.3e} max_scaled_err={scaled:.3e}")
+        if ours[28] != ref[28] or ref[28] < 1000 or scaled > SUM_TOL:
+            raise AssertionError(f"B1 window {g_wr}x{g_wc}: matches {ours[28]} vs "
+                                 f"{ref[28]}, scaled error {scaled}")
+        rows.append({"scheme": "neighborhood", "window": [g_wr, g_wc], "gate": g_gate,
+                     "plane_gate": plane, "matches": int(ref[28]), "max_abs_err": abs_err,
+                     "max_scaled_err": scaled})
+        worst_abs, worst_scaled = max(worst_abs, abs_err), max(worst_scaled, scaled)
     # the last-block counter is back at 0 after every call
     args = (*inputs, wr, wc, gate, "geman_mcclure", 0.4, 0.0)
     first = b1.assoc_gn(*args)
@@ -238,11 +287,13 @@ def compare_b1_phase(inputs) -> dict:
             "tolerance": SUM_TOL, "repeat_calls_identical": REPEAT_CALLS}
 
 
-def run_sequence(name, loader, frames, dev, log_iters=None):
-    """One run of the champion `name` over the frames, each fed with the
-    previous frame's pose as its prior (the batched path chains it on the
-    device instead).  `log_iters` collects each step's iteration count."""
-    cfg = acceptance.champion_configs()[name]
+def run_sequence(cfg, loader, frames, dev, log_iters=None):
+    """One run of the configuration `cfg` (or the champion of that name)
+    over the frames, each fed with the previous frame's pose as its prior
+    (the batched path chains it on the device instead).  `log_iters`
+    collects each step's iteration count."""
+    if isinstance(cfg, str):
+        cfg = acceptance.champion_configs()[cfg]
     odom = ICPFrameToModel(cfg, projector=loader.projector(), device=dev)
     if log_iters is not None:
         step = odom._step
@@ -265,15 +316,27 @@ def run_sequence(name, loader, frames, dev, log_iters=None):
     return odom, odom.get_relative_poses(), elapsed
 
 
-def score(name, rel, loader, n) -> dict:
-    """tr_err / ATE against ground truth; fails on lost tracking or a miss
-    of the round's bar."""
+def metrics(name, rel, loader, n) -> dict:
+    """tr_err (None under 100 m), rot_err and ATE of `n` relative poses
+    against the loader's ground truth; fails unless they are finite."""
     if rel.shape != (n, 4, 4) or not np.all(np.isfinite(rel)):
         raise AssertionError(f"{name}: relative poses are not finite (n, 4, 4)")
     gt_rel = loader.get_ground_truth("synth_00")[:n]
     ate, ate_std = ev.compute_ate(rel, gt_rel)
     tr_err, rot_err, _ = ev.compute_kitti_metrics(ev.compute_absolute_poses(rel),
                                                   ev.compute_absolute_poses(gt_rel))
+    return {"tr_err": tr_err, "rot_err": rot_err, "ate_m": ate, "ate_std_m": ate_std}
+
+
+def _pct(tr_err) -> str:
+    return "n/a (under 100 m)" if tr_err is None else f"{100 * tr_err:.4f}%"
+
+
+def score(name, rel, loader, n) -> dict:
+    """tr_err / ATE against ground truth; fails on lost tracking or a miss
+    of the round's bar."""
+    m = metrics(name, rel, loader, n)
+    tr_err, rot_err, ate, ate_std = m["tr_err"], m["rot_err"], m["ate_m"], m["ate_std_m"]
     if tr_err is None:
         raise AssertionError(f"{name}: the run is too short for tr_err")
     ref = np.load(ROOT / "tests" / "fixtures" / "reference_e2e.npz")
@@ -326,6 +389,152 @@ def surfel_phase(loader, frames, dev):
         raise AssertionError(f"{worked} active nn_argmin launches")
     return odom, {"frames": n, "launches": launches, "active_launches": worked,
                   "first_run_s": elapsed, **score("surfel", rel, loader, n)}
+
+
+def sync_check(name, odom, frame) -> None:
+    """One more step of `odom` on `frame` under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync inside the
+    per-frame step raises.  The frame is uploaded before the mode is set."""
+    points, mask = odom._read_points(dict(frame))
+    prior = odom.last_rpose_device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = odom._step(odom._map_state, odom._delta_since_update, points, mask, prior)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out[3]).all()):
+        raise AssertionError(f"{name}: the checked step's pose is not finite")
+    log(f"[sync] {name}: one step under set_sync_debug_mode('error'), no host sync")
+
+
+def step_profile(name, odom, frame, steps=3) -> dict:
+    """Kernels and device ms per step (torch.profiler), warm wall ms per
+    step (back-to-back steps ending in a sync) and the device's idle share
+    of a step, 1 - device / wall, all from the same map state."""
+    points, mask = odom._read_points(dict(frame))
+    prior = odom.last_rpose_device
+
+    def step():
+        return odom._step(odom._map_state, odom._delta_since_update, points, mask, prior)
+
+    kernels, device_ms = _device_kernels(step, steps)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    idle = None if device_ms is None else 1.0 - device_ms / wall_ms
+    log(f"[step] {name}: {kernels} kernels per step, device {device_ms} ms, wall "
+        f"{wall_ms:.2f} ms per step, device idle share {idle}")
+    return {"kernels_per_step": kernels, "device_ms_per_step": device_ms,
+            "wall_ms_per_step": wall_ms, "idle_share": idle}
+
+
+def profile_run(name, cfg, loader, frames, dev) -> tuple:
+    """`cfg` over the frames with B1's launches counted (set to 0 just
+    before the run, read just after).  Returns (odometry, metrics and
+    counts); scans/s includes the odometry's set-up."""
+    n = len(frames)
+    b1.assoc_gn.launches = 0
+    b2.nn_argmin.launches = 0
+    odom, rel, elapsed = run_sequence(cfg, loader, frames, dev)
+    launches, nn = b1.assoc_gn.launches, b2.nn_argmin.launches
+    m = metrics(name, rel, loader, n)
+    log(f"[{name}] {n} frames: tr_err {_pct(m['tr_err'])} ATE {m['ate_m']:.5f} m "
+        f"(std {m['ate_std_m']:.5f}); assoc_gn launches {launches}, nn_argmin launches "
+        f"{nn}; {n / elapsed:.2f} scans/s (includes set-up)")
+    return odom, {"frames": n, "launches": launches, "nn_argmin_launches": nn,
+                  "scans_per_s": n / elapsed, **m}
+
+
+def _expect_launches(name, cfg, n, launches):
+    point_to_plane = (cfg.alignment or {}).get(
+        "mode", "point_to_plane_gauss_newton") == "point_to_plane_gauss_newton"
+    expected = cfg.max_num_alignments * (n - 1) if point_to_plane else 0
+    if launches != expected:
+        raise AssertionError(f"{name}: assoc_gn launched {launches} times, "
+                             f"expected {expected}")
+
+
+def highway_phase(dev, card) -> dict:
+    """The aggregated_highway profile over the 2 m/frame sequence."""
+    cfg = acceptance.profile_configs()["aggregated_highway"]
+    loader, frames = load_frames(acceptance.HIGHWAY_KW)
+    odom, out = profile_run("highway", cfg, loader, frames, dev)
+    _expect_launches("highway", cfg, len(frames), out["launches"])
+    log(f"[highway] {card}: bar: tr_err <= {100 * HIGHWAY_TR_ERR:.2f}% (the JAX "
+        f"package's pin)")
+    if out["tr_err"] is None or not out["tr_err"] <= HIGHWAY_TR_ERR:
+        raise AssertionError(f"highway: tr_err {out['tr_err']} above {HIGHWAY_TR_ERR}")
+    sync_check("highway", odom, frames[-1])
+    out["step"] = step_profile(f"highway {card}", odom, frames[-1])
+    return out
+
+
+def ct_icp_phase(loader, frames, dev, card) -> dict:
+    """The ct_icp profile over the rolling-shutter sequence, elastic and
+    then rigid (the same configuration with the warp off).
+
+    The profile reports mid-sweep poses (``get_relative_poses``), held to
+    the JAX package's ATE pin.  The sequence's ground truth is the
+    scan-START poses, and mid-sweep poses differ from them by half a frame's
+    motion, so the elastic run is held against the rigid one (which reports
+    scan-start poses) on its scan-start surface
+    (``get_ct_relative_poses("begin_pose")``)."""
+    cfg = acceptance.profile_configs()["ct_icp"]
+    n = len(frames)
+    odom, elastic = profile_run("ct_icp", cfg, loader, frames, dev)
+    _expect_launches("ct_icp", cfg, n, elastic["launches"])
+    surfaces = {name: metrics(f"ct_icp {name}", odom.get_ct_relative_poses(name), loader, n)
+                for name in ("begin_pose", "end_pose")}
+    rigid_cfg = dataclasses.replace(cfg, alignment=dict(cfg.alignment, elastic=False))
+    _, rigid = profile_run("ct_icp rigid", rigid_cfg, loader, frames, dev)
+    begin = surfaces["begin_pose"]
+    log(f"[ct_icp] {card}: elastic tr_err {_pct(elastic['tr_err'])} (mid_pose), {_pct(begin['tr_err'])} "
+        f"(begin_pose, ATE {begin['ate_m']:.5f} m), "
+        f"{_pct(surfaces['end_pose']['tr_err'])} (end_pose); rigid {_pct(rigid['tr_err'])}; "
+        f"bar: ATE < {CT_ICP_ATE_M} m (the JAX package's pin), elastic begin_pose tr_err "
+        f"below rigid")
+    if not elastic["ate_m"] < CT_ICP_ATE_M:
+        raise AssertionError(f"ct_icp: ATE {elastic['ate_m']} m")
+    if begin["tr_err"] is None or rigid["tr_err"] is None or \
+            not begin["tr_err"] < rigid["tr_err"]:
+        raise AssertionError(f"ct_icp: elastic tr_err {begin['tr_err']} (begin_pose) not "
+                             f"below rigid {rigid['tr_err']}")
+    sync_check("ct_icp", odom, frames[-1])
+    elastic["step"] = step_profile(f"ct_icp {card}", odom, frames[-1])
+    return {"elastic": elastic, "elastic_surfaces": surfaces, "rigid": rigid}
+
+
+def profile_variants() -> dict:
+    """The other CT-ICP profiles and the aggregated champion with the other
+    alignment modes and the one-shot deskew."""
+    profiles = acceptance.profile_configs()
+    out = {name: profiles[name] for name in ("ct_icp_drive", "ct_icp_robust_drive",
+                                              "ct_icp_robust_shaky",
+                                              "ct_icp_slow_outdoor")}
+    champion = acceptance.champion_configs()["aggregated"]
+    for name, over in (("point_to_point_gauss_newton",
+                        {"mode": "point_to_point_gauss_newton"}),
+                       ("point_to_point_procrustes", {"mode": "point_to_point_procrustes"}),
+                       ("deskew", {"deskew": True})):
+        out["champion " + name] = dataclasses.replace(
+            champion, alignment=dict(champion.alignment, **over))
+    return out
+
+
+def profiles_phase(loader, frames, dev) -> dict:
+    frames = frames[:PROFILE_FRAMES]
+    out = {}
+    for name, cfg in profile_variants().items():
+        odom, out[name] = profile_run(name, cfg, loader, frames, dev)
+        _expect_launches(name, cfg, len(frames), out[name]["launches"])
+        sync_check(name, odom, frames[-1])
+    return out
 
 
 def b2_inputs(odom, next_frame):
@@ -637,23 +846,41 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {card} | torch {torch.__version__} CUDA {torch.version.cuda}")
 
-    build = build_phase()
-    loader, frames, next_frame = load_sequence()
+    seconds = {}
+
+    def phase(label, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[label] = time.perf_counter() - t0
+        log(f"[time] {label}: {seconds[label]:.1f} s")
+        return out
+
+    build = phase("build", build_phase)
+    loader, frames, next_frame = phase("setup", load_sequence)
     b1_in = kernel_inputs(loader, frames, dev)
-    compare_b1 = compare_b1_phase(b1_in)
-    aggregated = aggregated_phase(loader, frames, dev)
-    odom, surfel = surfel_phase(loader, frames, dev)
+    compare_b1 = phase("compare B1", compare_b1_phase, b1_in)
+    aggregated = phase("aggregated", aggregated_phase, loader, frames, dev)
+    odom, surfel = phase("surfel", surfel_phase, loader, frames, dev)
     b2_in = b2_inputs(odom, next_frame)
-    compare_b2 = compare_b2_phase(*b2_in)
-    times = times_phase(b1_in, b2_in, loader, frames, dev, card)
-    compare = compare_phase(args.compare, b1_in, b2_in, card)
+    compare_b2 = phase("compare B2", compare_b2_phase, *b2_in)
+    highway = phase("highway", highway_phase, dev, card)
+    rs_loader, rs_frames = phase("setup rolling shutter", load_frames,
+                                 acceptance.ROLLING_SHUTTER_KW)
+    ct_icp = phase("ct_icp", ct_icp_phase, rs_loader, rs_frames, dev, card)
+    profiles = phase("profiles", profiles_phase, rs_loader, rs_frames, dev)
+    times = phase("times", times_phase, b1_in, b2_in, loader, frames, dev, card)
+    compare = phase("compare", compare_phase, args.compare, b1_in, b2_in, card)
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "compare_b1": compare_b1,
          "compare_b2": compare_b2, "aggregated": aggregated, "surfel": surfel,
-         "times": times, "compare": compare}, indent=1))
+         "highway": highway, "ct_icp": ct_icp, "profiles": profiles,
+         "times": times, "compare": compare, "seconds": seconds}, indent=1))
+    b1_paths = {"aggregated": aggregated["launches"], "highway": highway["launches"],
+                "ct_icp": ct_icp["elastic"]["launches"],
+                **{name: run["launches"] for name, run in profiles.items()}}
 
     kernels = []
     for kname, run, result in (("assoc_gn", aggregated, compare_b1),
@@ -668,6 +895,8 @@ def main() -> int:
             "roofline_share": t["roofline_share"], "library_ms": t["library_ms"]})
         if "active_launches" in run:
             kernels[-1]["active_launches"] = run["active_launches"]
+        if kname == "assoc_gn":
+            kernels[-1]["launches_by_path"] = b1_paths
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

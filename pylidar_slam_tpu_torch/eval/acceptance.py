@@ -1,14 +1,86 @@
-"""The acceptance sequence and the champion configurations (port of the part
-of ``pylidar_slam_tpu.eval.acceptance`` the ported slices need).
+"""The acceptance sequences, the champion configurations and the odometry
+profiles (port of the part of ``pylidar_slam_tpu.eval.acceptance`` the
+ported slices need).
 
 The JAX package's ``bench.build_icp_config("aggregated", "rimg8")`` is
-pinned equal to the same configuration.
+pinned equal to the aggregated champion, and its ``config/slam/odometry``
+profiles to ``profile_configs()`` (the port reads no YAML).
 """
 from __future__ import annotations
 
 SEQ_KW = dict(lidar_height=64, lidar_width=1024, num_frames=140,
               num_walls=40, num_pillars=25)
 UP_FOV, DOWN_FOV = 3.0, -24.0
+# The rolling-shutter sequence the CT-ICP profiles are held on: each azimuth
+# column raycast along the motion to the next pose, a 0.08 rad/frame turn
+# rate (the synthetic dataset's other settings at their defaults).
+ROLLING_SHUTTER_KW = dict(lidar_height=64, lidar_width=1024, num_frames=100,
+                          skew=True, turn_rate=0.08, speed=1.2)
+# The high-speed sequence (2 m/frame, KITTI seq-01 class) of the
+# aggregated_highway profile.
+HIGHWAY_KW = dict(lidar_height=64, lidar_width=1024, num_frames=60,
+                  num_walls=40, num_pillars=25, speed=2.0)
+
+_AGG_MAP = {"type": "aggregated_local_map", "local_map_size": 20,
+            "window_rows": 1, "window_cols": 2, "max_neighbor_dist": 1.0}
+_ELASTIC_GN = {"scheme": "neighborhood", "sigma": 0.2, "max_iters": 1}
+
+
+def _ct_profile(max_num_alignments, reassoc_every, gn, local_map=None,
+                reassoc_motion_m=None):
+    """A CT-ICP profile: the aggregated map, elastic point-to-plane GN, the
+    mid-sweep pose, f32 uploads of up to 65,536 points, one frame per step."""
+    from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import \
+        ICPFrameToModelConfig
+    extra = {} if reassoc_motion_m is None else {"reassoc_motion_m": reassoc_motion_m}
+    return ICPFrameToModelConfig(
+        max_num_alignments=max_num_alignments, reassoc_every=reassoc_every,
+        pose_type="mid_pose", data_key="numpy_pc",
+        alignment={"mode": "point_to_plane_gauss_newton", "elastic": True,
+                   "gauss_newton_config": dict(_ELASTIC_GN, **gn)},
+        local_map=dict(_AGG_MAP, **(local_map or {})),
+        num_points_padded=65536, **extra)
+
+
+def profile_configs():
+    """The repo's CT-ICP profiles and its high-speed profile
+    (``config/slam/odometry/<name>.yaml``), with the runner settings they
+    are run with: f32 uploads padded to 65,536 points for the CT-ICP
+    profiles; batched rimg8 uploads (12 frames) for the highway profile."""
+    from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import \
+        ICPFrameToModelConfig
+    return {
+        "ct_icp": _ct_profile(12, 2, {
+            "max_dist_to_plane": 0.5, "beta_location_consistency": 0.001,
+            "beta_constant_velocity": 0.001}),
+        "ct_icp_drive": _ct_profile(8, 8, {
+            "max_dist_to_plane": 0.3, "beta_location_consistency": 0.001,
+            "beta_constant_velocity": 0.001}, reassoc_motion_m=0.2),
+        "ct_icp_robust_drive": _ct_profile(12, 12, {
+            "sigma_start": 1.0, "sigma_anneal_iters": 4, "max_dist_to_plane": 0.5,
+            "beta_location_consistency": 0.001,
+            "beta_orientation_consistency": 0.01},
+            local_map={"max_neighbor_dist_start": 3.0}, reassoc_motion_m=0.2),
+        "ct_icp_robust_shaky": _ct_profile(16, 16, {
+            "sigma_start": 1.0, "sigma_anneal_iters": 6, "max_dist_to_plane": 0.8,
+            "beta_small_velocity": 0.01},
+            local_map={"window_rows": 2, "window_cols": 3,
+                       "max_neighbor_dist_start": 3.0}, reassoc_motion_m=0.15),
+        "ct_icp_slow_outdoor": _ct_profile(6, 6, {
+            "max_dist_to_plane": 0.3, "beta_small_velocity": 0.02},
+            local_map={"max_neighbor_dist": 0.6}, reassoc_motion_m=0.1),
+        # Merged-model normal refits with the centered window fit and a
+        # 10-insert model age.
+        "aggregated_highway": ICPFrameToModelConfig(
+            max_num_alignments=12, reassoc_every=8, reassoc_motion_m=0.2,
+            data_key="numpy_pc",
+            local_map=dict(_AGG_MAP, local_map_size=10, max_neighbor_dist=0.6,
+                           model_normals=True, normals_fit="centered"),
+            alignment={"mode": "point_to_plane_gauss_newton",
+                       "gauss_newton_config": {"scheme": "geman_mcclure",
+                                               "sigma": 0.4, "max_iters": 1}},
+            num_points_padded=66560, upload_format="rimg8", batch_size=12),
+    }
 
 
 def champion_configs():

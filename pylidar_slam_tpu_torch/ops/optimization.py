@@ -97,20 +97,82 @@ def point_to_plane_at_identity(points: torch.Tensor, ref_points: torch.Tensor,
             torch.where(mask[:, None], jac, torch.zeros_like(jac)))
 
 
+def point_to_point_residuals(params: torch.Tensor,
+                             target_points: torch.Tensor,
+                             ref_points: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Euclidean distance residuals ||T(params) p - q|| -> (N,); masked rows
+    are exactly zero."""
+    mat = se3.build_pose_matrix(params[None])[0]
+    diff = se3.apply_transformation(target_points, mat) - ref_points
+    sq = torch.sum(diff * diff, dim=-1)
+    if mask is not None:
+        sq = torch.where(mask, sq, torch.zeros_like(sq))
+    return _sqrt(torch.clamp(sq, min=1e-20)) * (sq > 0)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt.  CUDA's sqrtf is; torch's vectorized
+    CPU sqrt is not always (1 ulp on ~0.5% of inputs), so on the CPU it
+    goes through float64, whose sqrt rounded once more to float32 is the
+    correctly rounded float32 result."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
+def point_to_point_jacobian(params: torch.Tensor,
+                            target_points: torch.Tensor,
+                            ref_points: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Analytic Jacobian of the point-to-point NORM residuals: (N, 6),
+    J[n, p] = (dT/dx_p @ p_n) . (T p_n - q_n) / ||T p_n - q_n||."""
+    jac_mat = rotation.pose_matrix_jacobian(params[None])[0]
+    jac_rot = jac_mat[:, :3, :3]
+    jac_tr = jac_mat[:, :3, 3]
+    dpt = torch.einsum("pij,nj->pni", jac_rot, target_points) + jac_tr[:, None, :]
+    mat = se3.build_pose_matrix(params[None])[0]
+    diff = se3.apply_transformation(target_points, mat) - ref_points
+    norms = torch.clamp(torch.linalg.vector_norm(diff, dim=-1, keepdim=True), min=1e-9)
+    u = diff / norms
+    # the 3-term dot as a fused multiply-add chain in index order: the
+    # rounding of the JAX package's contraction on the CPU
+    jac = torch.addcmul(torch.addcmul(dpt[..., 0] * u[:, 0], dpt[..., 1], u[:, 1]),
+                        dpt[..., 2], u[:, 2]).T
+    if mask is not None:
+        jac = torch.where(mask[:, None], jac, torch.zeros_like(jac))
+    return jac
+
+
 # ----------------------------------------------------------------------------
 # Gauss-Newton
 # ----------------------------------------------------------------------------
 
+def add_pose_prior(h: torch.Tensor, g: torch.Tensor,
+                   prior_res: Optional[torch.Tensor],
+                   prior_weight: Optional[torch.Tensor]):
+    """Quadratic pose priors on a 6x6 system: the per-parameter cost
+    ``prior_weight[i] * (prior_res[i] + dx[i])^2`` adds diag(w) to H and
+    w * prior_res to g (identity-Jacobian residuals, no extra rows)."""
+    if prior_res is None or prior_weight is None:
+        return h, g
+    return h + torch.diag(prior_weight), g + prior_weight * prior_res
+
+
 def solve_normal_equations(h: torch.Tensor, g: torch.Tensor,
-                           det_threshold: float = 1.0e-7
+                           det_threshold: float = 1.0e-7,
+                           prior_res: Optional[torch.Tensor] = None,
+                           prior_weight: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dx = -H^{-1} g by Cholesky, on the device with no host sync.
+    """dx = -H^{-1} g by Cholesky, on the device with no host sync, after
+    the optional pose priors (``add_pose_prior``).
 
     Singular systems (|det| < det_threshold, the reference's guard) give
     dx = 0 and singular = True.  H is a sum of outer products (positive
     semi-definite), so det(H) is the squared product of the Cholesky
     diagonal, and a factorization that fails marks H singular as well.
     """
+    h, g = add_pose_prior(h, g, prior_res, prior_weight)
     chol, info = torch.linalg.cholesky_ex(h)
     det = torch.prod(torch.diagonal(chol)) ** 2
     singular = (info != 0) | (torch.abs(det) < det_threshold)
@@ -121,14 +183,18 @@ def solve_normal_equations(h: torch.Tensor, g: torch.Tensor,
 def gauss_newton_step(res: torch.Tensor, jac: torch.Tensor,
                       weights: torch.Tensor,
                       det_threshold: float = 1.0e-7,
-                      damping: float = 0.0):
+                      damping: float = 0.0,
+                      prior_res: Optional[torch.Tensor] = None,
+                      prior_weight: Optional[torch.Tensor] = None):
     """One weighted GN step from residuals (N,), Jacobian (N, 6), weights
-    (N,).  `damping` > 0 adds the Levenberg term ``damping * trace(H) / 6 *
-    I`` before the solve.  Returns (dx (6,), loss, singular)."""
+    (N,).  The optional pose priors (``add_pose_prior``) join first; then
+    `damping` > 0 adds the Levenberg term ``damping * trace(H) / 6 * I``.
+    Returns (dx (6,), loss, singular)."""
     wres = res * weights
     wjac = jac * weights[:, None]
     h = torch.sum(wjac[:, :, None] * wjac[:, None, :], dim=0)
     g = torch.sum(wjac * wres[:, None], dim=0)
+    h, g = add_pose_prior(h, g, prior_res, prior_weight)
     if damping > 0.0:
         h = h + (damping * torch.trace(h) / 6.0) * torch.eye(
             6, dtype=h.dtype, device=h.device)

@@ -35,6 +35,31 @@ def point_norm(points: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(points, dim=-1)
 
 
+def np_estimate_timestamps(points: np.ndarray, clockwise: bool = True,
+                           phi_0: float = 0.0) -> np.ndarray:
+    """``estimate_timestamps`` on the host, without a mask."""
+    phis = np.arctan2(points[..., 1], points[..., 0]) * (-1.0 if clockwise else 1.0)
+    phis = phis - phi_0
+    phis = np.where(phis < 0.0, phis + 2.0 * math.pi, phis)
+    lo, hi = phis.min(), phis.max()
+    return (phis - lo) / max(hi - lo, 1e-12)
+
+
+def estimate_timestamps(points: torch.Tensor, clockwise: bool = True,
+                        phi_0: float = 0.0, mask: torch.Tensor = None) -> torch.Tensor:
+    """Per-point sweep fractions of a rotating LiDAR from the azimuth:
+    (N, 3) -> (N,) in [0, 1], the min and max taken over `mask` only."""
+    phis = torch.atan2(points[..., 1], points[..., 0]) * (-1.0 if clockwise else 1.0)
+    phis = phis - phi_0
+    phis = torch.where(phis < 0.0, phis + 2.0 * math.pi, phis)
+    if mask is None:
+        lo, hi = torch.amin(phis), torch.amax(phis)
+    else:
+        lo = torch.amin(torch.where(mask, phis, torch.full_like(phis, math.inf)))
+        hi = torch.amax(torch.where(mask, phis, torch.full_like(phis, -math.inf)))
+    return (phis - lo) / torch.clamp(hi - lo, min=1e-12)
+
+
 class SphericalProjection(NamedTuple):
     """Static projection parameters."""
     height: int

@@ -65,6 +65,97 @@ def pose_motion_magnitude(delta: torch.Tensor, lever_m: float = 15.0) -> torch.T
 
 
 # ----------------------------------------------------------------------------
+# Quaternions (the slerp of the de-skew and elastic warps, on the device)
+# ----------------------------------------------------------------------------
+
+def mat_to_quat(rot: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotations -> (..., 4) unit quaternions (w, x, y, z).
+
+    Branchless Shepperd extraction: all four candidate formulas are
+    computed and the one with the largest score is selected per matrix.
+    """
+    m00, m01, m02 = rot[..., 0, 0], rot[..., 0, 1], rot[..., 0, 2]
+    m10, m11, m12 = rot[..., 1, 0], rot[..., 1, 1], rot[..., 1, 2]
+    m20, m21, m22 = rot[..., 2, 0], rot[..., 2, 1], rot[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) / 2.0
+
+    qw0 = root(1.0 + tr)
+    q0 = torch.stack([qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0)], dim=-1)
+    qx1 = root(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / (4 * qx1), qx1, (m01 + m10) / (4 * qx1),
+                      (m02 + m20) / (4 * qx1)], dim=-1)
+    qy2 = root(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m02 - m20) / (4 * qy2), (m01 + m10) / (4 * qy2), qy2,
+                      (m12 + m21) / (4 * qy2)], dim=-1)
+    qz3 = root(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m10 - m01) / (4 * qz3), (m02 + m20) / (4 * qz3),
+                      (m12 + m21) / (4 * qz3), qz3], dim=-1)
+
+    scores = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22,
+                          -m00 - m11 + m22], dim=-1)
+    best = torch.argmax(scores, dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(qs, -2, best[..., None, None].expand(
+        *best.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) unit quaternions (w, x, y, z) -> (..., 3, 3) rotations."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Slerp between quaternions; `alpha` broadcasts against (..., 1).
+    Near-parallel pairs (sin theta < 1e-6) fall back to lerp."""
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+    theta = torch.arccos(dot)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    safe_sin = torch.where(small, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(small, 1.0 - alpha, torch.sin((1.0 - alpha) * theta) / safe_sin)
+    w1 = torch.where(small, alpha, torch.sin(alpha * theta) / safe_sin)
+    q = w0 * q0 + w1 * q1
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def interpolate_pose(pose: torch.Tensor, alphas: torch.Tensor):
+    """Per-point fractions of a (4, 4) motion: slerp(I, pose, alpha) for the
+    rotation, alpha * t for the translation.  `alphas` (N,) in [0, 1] ->
+    ((N, 3, 3) rotations, (N, 3) translations)."""
+    n = alphas.shape[0]
+    q1 = mat_to_quat(pose[:3, :3])
+    # the identity quaternion built on the device (a host tensor copied up
+    # would sync)
+    q0 = torch.cat([torch.ones_like(q1[:1]), torch.zeros_like(q1[1:])])
+    qs = quat_slerp(q0.expand(n, 4), q1.expand(n, 4), alphas[:, None])
+    return quat_to_mat(qs), alphas[:, None] * pose[:3, 3][None, :]
+
+
+def warp_points(rots: torch.Tensor, trs: torch.Tensor, points: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """R_n p_n + t_n per point for (N, 3, 3) rotations, (N, 3) translations
+    and points; rows outside `mask` are zero.  Written as a broadcast
+    product and a 3-term sum, not a batched matmul of N 3x3 blocks."""
+    p = torch.sum(rots * points[:, None, :], dim=-1) + trs
+    return torch.where(mask[:, None], p, torch.zeros_like(p))
+
+
+# ----------------------------------------------------------------------------
 # Host-side (numpy) pose interpolation for datasets
 # ----------------------------------------------------------------------------
 

@@ -22,12 +22,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pylidar_slam_tpu_torch.ops import geometry, projection, se3
+from pylidar_slam_tpu_torch.ops import (geometry, optimization, projection,
+                                        registration, se3)
 from pylidar_slam_tpu_torch.ops.kernels.assoc_gn import (
     assoc_gn, unpack, window_associate_images)
 from pylidar_slam_tpu_torch.ops.optimization import solve_normal_equations
@@ -47,10 +48,17 @@ class AggregatedLocalMapConfig(LocalMapConfig):
     # distance, shrinking geometrically to `max_neighbor_dist` over the GN
     # config's `sigma_anneal_iters` (0 disables).
     max_neighbor_dist_start: float = 0.0
-    # Not ported yet (ROADMAP.md A.5b): normals refit on the merged model,
-    # and the centered covariance fit.
+    # Refit the normals on the MERGED model image after every insert
+    # (degenerate fits keep the carried per-scan normal).
     model_normals: bool = False
+    # Window plane fit: "plane" = the uncentered (sum v v^T) n = sum v
+    # solve; "centered" = the mean-centered covariance's smallest
+    # eigenvector (geometry.compute_normal_map_centered).
     normals_fit: str = "plane"
+
+
+ALIGNMENT_MODES = ("point_to_plane_gauss_newton", "point_to_point_gauss_newton",
+                   "point_to_point_procrustes")
 
 
 class AggMapState(NamedTuple):
@@ -161,11 +169,12 @@ def _gather_image(values: torch.Tensor, idx: torch.Tensor, hit: torch.Tensor,
         (h, w) + got.shape[1:])
 
 
-def _check_normals_fit(normals_fit: str):
-    if normals_fit != "plane":
-        raise NotImplementedError(
-            f"normals_fit='{normals_fit}' (the centered covariance fit) is "
-            f"not ported yet: ROADMAP.md A.5b")
+def _normal_fit_fn(normals_fit: str):
+    if normals_fit == "centered":
+        return geometry.compute_normal_map_centered
+    if normals_fit == "plane":
+        return geometry.compute_normal_map
+    raise ValueError(f"Unknown normals_fit '{normals_fit}'")
 
 
 def build_scan_images(points: torch.Tensor,
@@ -174,11 +183,10 @@ def build_scan_images(points: torch.Tensor,
                       normals_kernel_size: int = 5,
                       normals_fit: str = "plane"):
     """Rasterizes a scan -> (vertex map, normal map, range image), (H, W, *)."""
-    _check_normals_fit(normals_fit)
     h, w = proj.height, proj.width
     idx, hit = rasterize_encoded(points, proj, mask)
     vmap = _gather_image(points, idx, hit, h, w)
-    nmap = geometry.compute_normal_map(vmap, normals_kernel_size)
+    nmap = _normal_fit_fn(normals_fit)(vmap, normals_kernel_size)
     return vmap, nmap, point_norm(vmap)
 
 
@@ -199,13 +207,10 @@ def insert_scan(state: AggMapState,
 
     The old model is re-expressed in the new anchor frame, re-rasterized once
     and merged with the scan by per-pixel closest-range select.  Old pixels
-    at `max_age` or older are evicted first.
+    at `max_age` or older are evicted first.  With `model_normals_kernel`
+    > 0 the normals are refit on the merged image; where that fit is
+    degenerate the carried normal stays.
     """
-    if model_normals_kernel > 0:
-        raise NotImplementedError(
-            "model_normals (normals refit on the merged model) is not ported "
-            "yet: ROADMAP.md A.5b")
-    _check_normals_fit(normals_fit)
     h, w, _ = scan_vmap.shape
     t = new_anchor_from_old_anchor
 
@@ -234,6 +239,10 @@ def insert_scan(state: AggMapState,
     zero_age = torch.zeros_like(old_img_age)
     age = torch.where(take_old, old_img_age + 1, zero_age)
     age = torch.where(rng > 0, age, zero_age)
+    if model_normals_kernel > 0:
+        fit = _normal_fit_fn(normals_fit)(xyz, model_normals_kernel)
+        good = torch.amax(torch.abs(fit), dim=-1, keepdim=True) > 0
+        nrm = torch.where(good, fit, nrm)
     return AggMapState(xyz=xyz, normal=nrm, rng=rng, age=age,
                        anchor_from_cur=torch.eye(4, dtype=xyz.dtype,
                                                  device=xyz.device))
@@ -274,25 +283,23 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
                             deskew: bool = False,
                             elastic: bool = False,
                             alignment_mode: str = "point_to_plane_gauss_newton"):
-    """Builds (step, first_frame, batch_step) for the aggregated-map odometry
-    in point-to-plane Gauss-Newton mode.
+    """Builds (step, first_frame, batch_step) for the aggregated-map odometry.
 
     `max_num_alignments` GN iterations; the target is re-rasterized into the
     anchor grid every `reassoc_every` iterations and, when
     `reassoc_motion_m` > 0, whenever the pose moved more than that since the
     last rasterization.
+
+    Alignment modes: point-to-plane GN on kernel B1 (association, plane
+    gate and the weighted sums in one launch), and point-to-point GN or
+    procrustes on the plain association.  The CT-ICP beta priors join the
+    GN system after its sums.  `deskew` warps each cloud once by the
+    constant-velocity prior; `elastic` re-warps the raw cloud from the
+    current pose iterate before every rasterization and inserts it warped
+    by the final estimate.
     """
-    if alignment_mode != "point_to_plane_gauss_newton":
-        raise NotImplementedError(
-            f"alignment mode '{alignment_mode}' (point-to-point GN / "
-            f"procrustes) is not ported yet: ROADMAP.md A.5b")
-    if max(beta_location_consistency, beta_constant_velocity,
-           beta_small_velocity, beta_orientation_consistency) > 0.0:
-        raise NotImplementedError(
-            "CT-ICP beta pose priors are not ported yet: ROADMAP.md A.5b")
-    if deskew or elastic:
-        raise NotImplementedError(
-            "deskew / elastic registration is not ported yet: ROADMAP.md A.5b")
+    if alignment_mode not in ALIGNMENT_MODES:
+        raise ValueError(f"Unknown alignment mode '{alignment_mode}'")
     if upload_quantization > 0.0:
         raise NotImplementedError(
             "int16-quantized uploads are left out of the port (ROADMAP.md, "
@@ -306,10 +313,9 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
     nks = int(map_cfg.normals_kernel_size)
     model_nks = nks if bool(map_cfg.model_normals) else 0
     nrm_fit = str(map_cfg.normals_fit)
-    if model_nks:
-        raise NotImplementedError(
-            "model_normals is not ported yet: ROADMAP.md A.5b")
-    _check_normals_fit(nrm_fit)
+    normal_fit = _normal_fit_fn(nrm_fit)
+    priors = max(beta_location_consistency, beta_constant_velocity,
+                 beta_small_velocity, beta_orientation_consistency) > 0.0
 
     def anneal_at(start: float, end: float, it: int) -> float:
         """Geometric interpolation from `start` down to `end` over the first
@@ -320,17 +326,81 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
         frac = min(max(it / float(gn_sigma_anneal_iters), 0.0), 1.0)
         return start * (end / start) ** frac
 
+    def pose_prior(t, t_init, anchor_from_cur, count):
+        """The CT-ICP beta priors as (prior_res, prior_weight) in the
+        left-delta space of dx, scaled by the match count: pulls toward the
+        constant-velocity prior t_init (translation, rotation or both) and
+        toward zero motion (t == anchor_from_cur)."""
+        if not priors:
+            return None, None
+        n_ok = torch.clamp(count.to(t.dtype), min=1.0)
+        tr_blk = torch.cat([torch.ones_like(t[0, :3]), torch.zeros_like(t[0, :3])])
+        rot_blk = 1.0 - tr_blk
+        d_cv = se3.from_pose_matrix((t @ se3.inverse_pose_matrix(t_init))[None])[0]
+        d_sv = se3.from_pose_matrix(
+            (t @ se3.inverse_pose_matrix(anchor_from_cur))[None])[0]
+        w_cv = n_ok * (beta_constant_velocity
+                       + beta_location_consistency * tr_blk
+                       + beta_orientation_consistency * rot_blk)
+        w_sv = n_ok * beta_small_velocity
+        weight = w_cv + w_sv
+        return (w_cv * d_cv + w_sv * d_sv) / torch.clamp(weight, min=1.0e-12), weight
+
     def register(state: AggMapState, tgt_pts: torch.Tensor,
-                 tgt_mask: torch.Tensor, t_init: torch.Tensor):
-        """ICP: solves T = anchor_from_new. tgt_pts (N, 3) in the new frame.
-        Returns (T, iterations run, loss, matches) as device tensors."""
+                 tgt_mask: torch.Tensor, t_init: torch.Tensor,
+                 alphas: Optional[torch.Tensor]):
+        """ICP: solves T = anchor_from_new. tgt_pts (N, 3) in the new frame;
+        `alphas` (elastic mode) are their sweep fractions.  Returns (T,
+        iterations run, loss, matches) as device tensors."""
         dev = tgt_pts.device
         model_valid = state.rng > 0
+        inv_anchor = se3.inverse_pose_matrix(state.anchor_from_cur) if elastic else None
 
         def rasterize_target(t):
-            q = se3.apply_transformation(tgt_pts, t)
+            if elastic:
+                # the raw cloud re-warped from the current iterate: per-point
+                # slerp between identity and the frame-to-frame motion
+                rots, trs = se3.interpolate_pose(inv_anchor @ t, alphas)
+                p = se3.warp_points(rots, trs, tgt_pts, tgt_mask)
+            else:
+                p = tgt_pts
+            q = se3.apply_transformation(p, t)
             idx, hit = rasterize_encoded(q, proj, tgt_mask)
             return _gather_image(q, idx, hit, h, w)
+
+        def solve(timg, t, sigma_k, max_nd_k):
+            """One iteration's (dx, loss, singular, match count)."""
+            if alignment_mode == "point_to_plane_gauss_newton":
+                sums = assoc_gn(timg, state.xyz, state.normal, model_valid, wr, wc,
+                                max_nd_k, gn_scheme, sigma_k, max_dist_to_plane,
+                                gn_eps)
+                hmat, g, loss_k, count_k, _ = unpack(sums)
+                prior_res, prior_weight = pose_prior(t, t_init, state.anchor_from_cur,
+                                                     count_k)
+                dx, singular = solve_normal_equations(
+                    hmat, g, prior_res=prior_res, prior_weight=prior_weight)
+                return dx, loss_k, singular, count_k
+            ref, _, ok, sq_d = window_associate(state, timg, wr, wc, max_nd_k)
+            tp = timg.reshape(-1, 3)
+            zero6 = tp.new_zeros(6)
+            count_k = ok.sum()
+            res = optimization.point_to_point_residuals(zero6, tp, ref, ok)
+            weights = optimization.robust_weights(gn_scheme, res, sigma_k,
+                                                  sq_dists=sq_d, eps=gn_eps)
+            if alignment_mode == "point_to_point_procrustes":
+                # the closed-form weighted Kabsch fit of this association
+                wts = weights * weights * ok.to(tp.dtype)
+                mat = registration.weighted_procrustes(ref[None], tp[None], wts[None])[0]
+                singular = count_k < 3
+                dx = se3.from_pose_matrix(mat[None])[0]
+                dx = torch.where(singular, torch.zeros_like(dx), dx)
+                return dx, torch.sum((res * weights) ** 2), singular, count_k
+            jac = optimization.point_to_point_jacobian(zero6, tp, ref, ok)
+            prior_res, prior_weight = pose_prior(t, t_init, state.anchor_from_cur,
+                                                 count_k)
+            dx, loss_k, singular = optimization.gauss_newton_step(
+                res, jac, weights, prior_res=prior_res, prior_weight=prior_weight)
+            return dx, loss_k, singular, count_k
 
         t = t_init
         timg0 = rasterize_target(t_init)
@@ -362,11 +432,7 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
                 timg0_k.reshape(-1, 3), delta_round).reshape(h, w, 3)
             timg = torch.where(tvalid, moved_img, torch.zeros_like(moved_img))
 
-            sums = assoc_gn(timg, state.xyz, state.normal, model_valid, wr, wc,
-                            max_nd_k, gn_scheme, sigma_k, max_dist_to_plane,
-                            gn_eps)
-            hmat, g, loss_k, count_k, _ = unpack(sums)
-            dx, singular = solve_normal_equations(hmat, g)
+            dx, loss_k, singular, count_k = solve(timg, t, sigma_k, max_nd_k)
             dn = torch.linalg.vector_norm(dx)
             apply = (dn >= threshold_delta_pose) & (~singular)
             new_t = se3.normalize_pose_matrix(
@@ -382,13 +448,12 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
             matches = torch.where(active, count_k.to(torch.int32), matches)
         return t, it, loss, matches
 
-    def scan_images(points: torch.Tensor, mask: torch.Tensor,
-                    pixel_ordered: bool):
-        if pixel_ordered:
+    def scan_images(points: torch.Tensor, mask: torch.Tensor, reshape: bool):
+        if reshape:
             # Range-image uploads decode in row-major pixel order: the
             # vertex map is a reshape (one point per pixel, no collisions).
             vmap = points[: h * w].reshape(h, w, 3)
-            return vmap, geometry.compute_normal_map(vmap, nks), point_norm(vmap)
+            return vmap, normal_fit(vmap, nks), point_norm(vmap)
         return build_scan_images(points, mask, proj, nks, normals_fit=nrm_fit)
 
     def step(state: AggMapState, delta_since_update: torch.Tensor,
@@ -396,8 +461,16 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
         """Full frame: register + thresholded insert.  Returns
         (state', delta', rpose, pose_params, (loss, iters, matches, inserted))."""
         points, mask, pixel_ordered = dequant_upload(points, mask, proj)
+        alphas = None
+        if elastic or deskew:
+            alphas = projection.estimate_timestamps(points, clockwise=True,
+                                                    phi_0=math.pi, mask=mask)
+        if deskew and not elastic:
+            # one warp by the constant-velocity prior, before registration
+            rots, trs = se3.interpolate_pose(init_rpose, alphas)
+            points = se3.warp_points(rots, trs, points, mask)
         t_init = state.anchor_from_cur @ init_rpose
-        t_final, it, loss, matches = register(state, points, mask, t_init)
+        t_final, it, loss, matches = register(state, points, mask, t_init, alphas)
 
         # Relative pose new -> previous frame
         rpose = se3.inverse_pose_matrix(state.anchor_from_cur) @ t_final
@@ -409,9 +482,15 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
             (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
 
         # Both branches of the JAX lax.cond, selected on the device.
-        vmap, nmap, rimg = scan_images(points, mask, pixel_ordered)
+        if elastic:
+            # the map holds the cloud de-skewed by the final estimate
+            rots, trs = se3.interpolate_pose(rpose, alphas)
+            points = se3.warp_points(rots, trs, points, mask)
+        vmap, nmap, rimg = scan_images(points, mask,
+                                       pixel_ordered and not (elastic or deskew))
         inserted = insert_scan(state, vmap, nmap, rimg,
-                               se3.inverse_pose_matrix(t_final), proj, max_age)
+                               se3.inverse_pose_matrix(t_final), proj, max_age,
+                               model_normals_kernel=model_nks, normals_fit=nrm_fit)
         state = select_state(insert, inserted,
                              state._replace(anchor_from_cur=t_final))
         eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
@@ -422,7 +501,8 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
         points, mask, pixel_ordered = dequant_upload(points, mask, proj)
         vmap, nmap, rimg = scan_images(points, mask, pixel_ordered)
         eye = torch.eye(4, dtype=points.dtype, device=points.device)
-        return insert_scan(state, vmap, nmap, rimg, eye, proj, max_age)
+        return insert_scan(state, vmap, nmap, rimg, eye, proj, max_age,
+                           model_normals_kernel=model_nks, normals_fit=nrm_fit)
 
     def batch_step(state: AggMapState, delta_since_update: torch.Tensor,
                    last_rpose: torch.Tensor,

@@ -24,6 +24,9 @@ from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.utils import assert_debug
 
+# The continuous-time pose surfaces: sweep fraction of each reported pose.
+_POSE_FRACTIONS = {"mid_pose": 0.5, "end_pose": 1.0}
+POSE_TYPES = ("", "begin_pose") + tuple(_POSE_FRACTIONS)
 # Local maps still to port, with their ROADMAP.md items.
 _UNPORTED_MAPS = {"voxel_local_map": "A.11", "projective_local_map": "A.12"}
 
@@ -52,7 +55,9 @@ class GaussNewtonConfig:
     sigma_anneal_iters: int = 0
     # Gate on the point-to-plane residual in meters (0 disables).
     max_dist_to_plane: float = 0.0
-    # CT-ICP pose priors: not ported yet (ROADMAP.md A.5b); must stay 0.
+    # CT-ICP pose priors: quadratic pulls of the GN solve toward the
+    # constant-velocity prior (translation, rotation, both) and toward zero
+    # motion, scaled by the match count (0 disables each).
     beta_location_consistency: float = 0.0
     beta_constant_velocity: float = 0.0
     beta_small_velocity: float = 0.0
@@ -92,6 +97,10 @@ class ICPFrameToModelConfig(OdometryConfig):
     # A weaker phase-correlation peak keeps the identity prior.
     ei_bootstrap_min_score: float = 0.05
 
+    # Continuous-time pose surface (elastic mode): which per-frame pose
+    # get_relative_poses reports.  "mid_pose" / "end_pose" sample scan k at
+    # half / all of its frame-to-frame motion; "" or "begin_pose" keeps the
+    # scan-start pose.
     pose_type: str = ""
 
     # Point capacity of a frame on the device (uploads are zero-padded to it).
@@ -155,14 +164,17 @@ class ICPFrameToModel:
             raise NotImplementedError(
                 f"upload_format='{fmt}': only rimg8 and f32 are ported "
                 f"(ROADMAP.md, 'What the port leaves out')")
-        if int(config.shard_points or 0) > 1 or str(config.pose_type or ""):
+        if int(config.shard_points or 0) > 1:
             raise NotImplementedError(
-                "shard_points / pose_type are not ported yet: ROADMAP.md A.13")
+                "shard_points is not ported yet: ROADMAP.md A.13")
+        assert_debug(str(config.pose_type or "") in POSE_TYPES,
+                     f"Unknown pose_type '{config.pose_type}'")
         if bool(config.viz_debug):
             raise NotImplementedError("viz_debug is ROADMAP.md A.19")
         align_cfg = config.alignment if isinstance(config.alignment, dict) else {}
         gn_cfg = dataclass_from_dict(
             GaussNewtonConfig, align_cfg.get("gauss_newton_config", {}))
+        self._elastic = bool(align_cfg.get("elastic", False))
 
         if mode == "kdtree_local_map":
             self._surfel_cfg = dataclass_from_dict(sm.SurfelRingMapConfig, lm_dict)
@@ -206,7 +218,7 @@ class ICPFrameToModel:
                     gn_cfg.beta_orientation_consistency or 0.0),
                 upload_quantization=float(config.upload_quantization or 0.0),
                 deskew=bool(align_cfg.get("deskew", False)),
-                elastic=bool(align_cfg.get("elastic", False)),
+                elastic=self._elastic,
                 alignment_mode=str(align_cfg.get("mode", "point_to_plane_gauss_newton")),
             )
         self.init()
@@ -475,11 +487,29 @@ class ICPFrameToModel:
 
     def get_relative_poses(self) -> Optional[np.ndarray]:
         """Float64 relative pose matrices, rebuilt from the float32 params
-        the device solved for."""
+        the device solved for; in elastic mode on the surface `pose_type`
+        selects."""
         params = self.fetch_params_log()
         if params is None:
             return None
-        return np.stack([_pose_matrix_f64(p) for p in params])
+        rel = np.stack([_pose_matrix_f64(p) for p in params])
+        pose_type = str(self.config.pose_type or "")
+        if self._elastic and pose_type in _POSE_FRACTIONS:
+            return _ct_relative_poses(rel, _POSE_FRACTIONS[pose_type])
+        return rel
+
+    def get_ct_relative_poses(self, pose_type: str = "mid_pose") -> Optional[np.ndarray]:
+        """Relative poses between consecutive begin / mid / end scan poses,
+        in any mode (rigid modes model the sweep by the frame-to-frame
+        estimate as well)."""
+        params = self.fetch_params_log()
+        if params is None:
+            return None
+        rel = np.stack([_pose_matrix_f64(p) for p in params])
+        if pose_type == "begin_pose":
+            return rel
+        assert_debug(pose_type in _POSE_FRACTIONS, f"Unknown pose_type '{pose_type}'")
+        return _ct_relative_poses(rel, _POSE_FRACTIONS[pose_type])
 
     @property
     def absolute_poses(self) -> list:
@@ -491,6 +521,43 @@ class ICPFrameToModel:
         for p in params[1:]:
             out.append(out[-1] @ _pose_matrix_f64(p))
         return out
+
+
+def _pose_fraction_f64(mat: np.ndarray, frac: float) -> np.ndarray:
+    """Geodesic fraction of an SE(3) matrix (float64, host): the rotation's
+    axis-angle scaled by `frac`, the translation lerped -- the per-point
+    interpolation of the elastic warp (se3.interpolate_pose)."""
+    r = mat[:3, :3]
+    cos = np.clip((np.trace(r) - 1.0) / 2.0, -1.0, 1.0)
+    ang = float(np.arccos(cos))
+    out = np.eye(4)
+    if ang < 1e-12:
+        out[:3, :3] = np.eye(3) + frac * (r - np.eye(3))
+    else:
+        axis = np.array([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0],
+                         r[1, 0] - r[0, 1]]) / (2.0 * np.sin(ang))
+        a = ang * frac
+        k = np.array([[0.0, -axis[2], axis[1]],
+                      [axis[2], 0.0, -axis[0]],
+                      [-axis[1], axis[0], 0.0]])
+        out[:3, :3] = np.eye(3) + np.sin(a) * k + (1.0 - np.cos(a)) * (k @ k)
+    out[:3, 3] = frac * mat[:3, 3]
+    return out
+
+
+def _ct_relative_poses(rel_begin: np.ndarray, frac: float) -> np.ndarray:
+    """Relative poses between consecutive scan poses at sweep fraction
+    `frac`: scan k's sweep motion is its frame-to-frame motion rel_begin[k],
+    so its pose at `frac` is abs_begin_k @ fraction(rel_begin[k], frac)."""
+    out = np.empty_like(rel_begin)
+    prev_abs_f = None
+    abs_begin = np.eye(4)
+    for k in range(rel_begin.shape[0]):
+        abs_begin = abs_begin @ rel_begin[k]
+        abs_f = abs_begin @ _pose_fraction_f64(rel_begin[k], frac)
+        out[k] = np.eye(4) if prev_abs_f is None else np.linalg.solve(prev_abs_f, abs_f)
+        prev_abs_f = abs_f
+    return out
 
 
 def _pose_matrix_f64(params: np.ndarray) -> np.ndarray:

@@ -23,6 +23,7 @@ from pylidar_slam_tpu_torch.eval import acceptance as tacc
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as tam
 from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel as TICP
 
+from test_torch_ct_paths import step_like_jax
 from test_torch_odometry import (H, SEQ, TIGHT_FRAMES, W, _assert_poses_close,
                                  _configs, _one_torch_thread)  # noqa: F401
 
@@ -87,16 +88,33 @@ def test_per_frame_path_matches_jax(frames, upload_format):
     (dict(local_map={"type": "voxel_local_map"}), "A.11"),
     (dict(upload_format="rimg16"), "leaves out"),
     (dict(upload_quantization=0.01), "leaves out"),
-    (dict(alignment={"mode": "point_to_point_gauss_newton"}), "A.5b"),
-    (dict(alignment={"gauss_newton_config": {"beta_constant_velocity": 0.1}}), "A.5b"),
-    (dict(alignment={"elastic": True}), "A.5b"),
-    (dict(local_map={"type": "aggregated_local_map", "model_normals": True}), "A.5b"),
-    (dict(local_map={"type": "aggregated_local_map", "normals_fit": "centered"}), "A.5b"),
+    (dict(shard_points=2), "A.13"),
 ])
 def test_unported_branches_raise(over, match):
     cfg = dataclasses.replace(tacc.champion_configs()["aggregated"], device="cpu", **over)
     with pytest.raises(NotImplementedError, match=match):
         TICP(cfg, projector=TLoader(TCfg(**SEQ)).projector())
+
+
+_GN = {"scheme": "geman_mcclure", "sigma": 0.4, "max_iters": 1}
+
+
+@pytest.mark.parametrize("over", [
+    dict(alignment={"mode": "point_to_point_gauss_newton", "gauss_newton_config": _GN}),
+    dict(alignment={"gauss_newton_config": dict(_GN, beta_constant_velocity=0.1)}),
+    dict(alignment={"elastic": True, "gauss_newton_config": _GN}),
+    dict(local_map=dict(tacc.champion_configs()["aggregated"].local_map, model_normals=True)),
+    dict(local_map=dict(tacc.champion_configs()["aggregated"].local_map,
+                        normals_fit="centered")),
+    dict(pose_type="mid_pose"),
+], ids=["point_to_point_gauss_newton", "beta_constant_velocity", "elastic",
+        "model_normals", "normals_fit_centered", "pose_type_mid_pose"])
+def test_former_a5b_branches_step_like_jax(over):
+    """The branches that raised before the rest of the aggregated map was
+    ported now run: one step each on the CPU from the JAX package's map
+    state, held to it as tests/test_torch_ct_paths.py holds every mode."""
+    cfg = dataclasses.replace(tacc.champion_configs()["aggregated"], batch_size=1, **over)
+    step_like_jax(cfg, label=str(over))
 
 
 def test_vertex_map_input_raises(frames):
