@@ -48,12 +48,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the highway and ct_icp paths three steps under ``torch.profiler``
    (kernels and device ms per step) and under a wall clock (the device's
    idle share of a step);
-10. times: each kernel's device time per call (N calls captured in a CUDA
+10. slam: the port's ``SLAM`` (aggregated odometry with 6 GN trips, f32
+   uploads, the elevation-image loop closure at its published widths --
+   512 px images, 4096-point refine clouds, 10 candidates, Fourier-Mellin
+   matching -- with candidates within 20 m, and the pose-graph backend)
+   over 40 frames at 64x1024, at
+   batch 1 and batch 4: at least one loop constraint with the backend
+   optimizing before the last frame, the same loop pairs at both batch
+   sizes, each constraint within 0.15 m and 0.25 deg of the ground truth,
+   ATE < 0.05 m, B2 launched on the refine (total and active trips); one
+   ``_match_candidates`` dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")`` and under ``torch.profiler``;
+   the same runs without loop closure, for scans/s; B2 against its plain
+   version on a refine's 4096 x 4096 inputs, masks on both sides;
+11. cli: ``python -m pylidar_slam_tpu_torch.run dataset=synthetic
+   dataset.num_frames=130 dataset.speed=1.3`` with the shared config's
+   defaults (surfel map with hash NN, CV initialization) and no device
+   override, so on the card: metrics.yaml with tr_err < 1% and ATE < 0.05 m;
+12. times: each kernel's device time per call (N calls captured in a CUDA
    graph, replayed under CUDA events), its wall time per call (back-to-back
    calls under CUDA events, which for B1 is the host's enqueue), its plain
    version's, B2's library yardstick (``torch.cdist`` + min) and each
-   kernel's bound from this run's inputs; each champion's steady-state
-   scans/s over the sequence.
+   kernel's bound from this run's inputs, B2 at the surfel path's and at the
+   loop-closure refine's shapes; each champion's steady-state scans/s over
+   the sequence.
 
 With ``--compare DIR`` (repeatable; DIR holds another checkout of the
 package, e.g. an earlier commit unpacked by ``git archive``), a last phase
@@ -83,6 +101,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pylidar_slam_tpu_torch.config import compose, load_yaml_file
 from pylidar_slam_tpu_torch.dataset.synthetic import (SyntheticConfig,
                                                       SyntheticDatasetLoader)
 from pylidar_slam_tpu_torch.eval import acceptance
@@ -95,6 +114,7 @@ from pylidar_slam_tpu_torch.ops.kernels.cuda_build import CSRC
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
+from pylidar_slam_tpu_torch.slam.slam import SLAM
 from pylidar_slam_tpu_torch.utils import device_timing, native
 from pylidar_slam_tpu_torch.utils.device_timing import graph_ms, time_calls
 
@@ -130,6 +150,29 @@ CT_ICP_ATE_M = 0.12
 PROFILE_FRAMES = 20
 REPLACES = {"assoc_gn": "pylidar_slam_tpu/ops/pallas/assoc_gn_kernel.py:169",
             "nn_argmin": "pylidar_slam_tpu/ops/pallas/nn_kernel.py:76"}
+# The slam phase: the configuration of tests/test_slam_e2e.py:367-390 (40
+# frames at 64x1024, aggregated odometry with 6 GN trips) with the loop
+# closure at its published widths and the pose-graph backend.  Candidates
+# are the stored submaps within 20 m: the run's revisits are 13-20 m apart,
+# and farther candidates (24-36 m) give spurious phase-correlation peaks of
+# up to 0.12 against the 0.10 acceptance score, so which of them passes
+# depends on float rounding (one did, 36 m off, on the card with no
+# distance limit).
+SLAM_FRAMES = 40
+SLAM_OVERRIDES = ["dataset=synthetic", f"dataset.num_frames={SLAM_FRAMES}",
+                  "dataset.turn_rate=0.01", "slam/odometry/local_map=aggregated",
+                  "slam.odometry.max_num_alignments=6",
+                  "slam.odometry.num_points_padded=65536"]
+LOOP_OVERRIDES = ["slam/loop_closure=elevation_image", "slam.loop_closure.local_map_size=4",
+                  "slam.loop_closure.overlap=1", "slam.loop_closure.min_id_distance=9",
+                  "slam.loop_closure.max_distance=20", "slam/backend=graph_slam"]
+# About twice the JAX package's worst loop constraint on this run on the
+# CPU (0.080 m, 0.123 deg).
+LOOP_TRANS_M, LOOP_ROT_DEG = 0.15, 0.25
+SLAM_ATE_M = 0.05
+# The verify recipe's run through the CLI; tr_err is a ratio (1%).
+CLI_OVERRIDES = ["dataset=synthetic", "dataset.num_frames=130", "dataset.speed=1.3"]
+CLI_TR_ERR, CLI_ATE_M = 0.01, 0.05
 
 
 def log(msg: str):
@@ -537,6 +580,173 @@ def profiles_phase(loader, frames, dev) -> dict:
     return out
 
 
+def slam_config(batch: int, loop_closure: bool) -> dict:
+    return compose(str(ROOT / "config"), "slam", SLAM_OVERRIDES + [
+        f"slam.odometry.batch_size={batch}"] + (LOOP_OVERRIDES if loop_closure else []))
+
+
+def run_slam(batch, loop_closure, loader, frames, dev) -> tuple:
+    """The port's SLAM over the frames; returns (slam, wall seconds, the
+    loop constraints registered before the last frame)."""
+    slam = SLAM(slam_config(batch, loop_closure)["slam"], projector=loader.projector(),
+                device=dev)
+    slam.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    before_last = []
+    for i, f in enumerate(frames):
+        slam.process_next_frame(dict(f))
+        if i == len(frames) - 2 and slam.backend is not None:
+            before_last = list(slam.backend.registered_loop_constraints())
+    slam.finish()
+    torch.cuda.synchronize()
+    return slam, time.perf_counter() - t0, before_last
+
+
+def loop_errors(loops, gt) -> list:
+    """Each loop constraint (i, j, T) against the ground truth inv(P_i) P_j:
+    (i, j, translation error m, rotation error deg)."""
+    out = []
+    for i, j, mat, _ in loops:
+        d = np.linalg.inv(np.linalg.inv(gt[i]) @ gt[j]) @ np.asarray(mat)
+        cos = np.clip((np.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+        out.append((int(i), int(j), float(np.linalg.norm(d[:3, 3])),
+                    float(np.degrees(np.arccos(cos)))))
+    return out
+
+
+def match_profile(lc, card) -> tuple:
+    """The last submap event's candidate match dispatched again: once under
+    ``set_sync_debug_mode("error")``, then timed (wall, synced) and traced
+    (kernels, device ms); the extra results are dropped.  Returns (profile,
+    B2 inputs of the event's first refine trip: the submap cloud, the
+    first candidate's cloud and mask)."""
+    stats = next(st for st in reversed(lc.match_stats) if st["candidates"] > 0)
+    k = lc.maps_frame_ids.index(stats["frame_id"])
+    args = (stats["ids"], lc.saved_images[k], lc.saved_clouds[k], stats["frame_id"])
+    pending = list(lc._pending_matches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lc._match_candidates(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[sync] slam: one _match_candidates dispatch under set_sync_debug_mode('error'), "
+        "no host sync")
+    launches = b2.nn_argmin.launches
+    kernels, device_ms = _device_kernels(lambda: lc._match_candidates(*args), 3)
+    b2_per_match = (b2.nn_argmin.launches - launches) / 4
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lc._match_candidates(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    lc._pending_matches = pending
+    wall_ms = float(np.median(walls))
+    out = {"candidates": stats["candidates"], "kernels": kernels, "device_ms": device_ms,
+           "wall_ms": wall_ms, "wall_runs_ms": walls, "b2_launches": b2_per_match,
+           "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms}
+    log(f"[slam] {card}: one submap event's match ({stats['candidates']} candidates, padded "
+        f"to 10): {kernels} kernels, device {device_ms} ms, wall {wall_ms:.2f} ms "
+        f"(runs {[round(w, 2) for w in walls]}), {b2_per_match:.0f} B2 launches")
+    cloud, mask = lc.saved_clouds[k]
+    cand, cand_mask = lc.saved_clouds[stats["ids"][0]]
+    return out, (cloud.contiguous(), cand.contiguous(), cand_mask.contiguous(), mask)
+
+
+def slam_phase(dev, card) -> tuple:
+    """SLAM with loop closure and the backend at batch 1 and 4, then without
+    loop closure (scans/s); B2's launches counted on the refine."""
+    loader, frames = load_frames(dict(lidar_height=64, lidar_width=1024,
+                                      num_frames=SLAM_FRAMES, turn_rate=0.01))
+    gt = loader.sequences()[0][0][0].poses_gt
+    gt_rel = loader.get_ground_truth("synth_00")[:SLAM_FRAMES]
+    out, slams = {}, {}
+    for batch in (1, 4):
+        b1.assoc_gn.launches = 0
+        b2.nn_argmin.launches = 0
+        slam, elapsed, before_last = run_slam(batch, True, loader, frames, dev)
+        launches = b2.nn_argmin.launches
+        lc = slam.loop_closure
+        loops = loop_errors(slam.backend.registered_loop_constraints(), gt)
+        ate, ate_std = ev.compute_ate(slam.get_relative_poses(), gt_rel)
+        odo_ate = ev.compute_ate(slam.odometry.get_relative_poses(), gt_rel)[0]
+        trips = sum(st["refine_trips"] for st in lc.match_stats)
+        run = {"batch": batch, "frames": SLAM_FRAMES, "seconds": elapsed,
+               "scans_per_s": SLAM_FRAMES / elapsed, "loops": loops,
+               "loops_before_last_frame": [(int(i), int(j)) for i, j, *_ in before_last],
+               "ate_m": ate, "ate_std_m": ate_std, "odometry_ate_m": odo_ate,
+               "b2_launches": launches, "b2_active_launches": trips,
+               "b1_launches": b1.assoc_gn.launches, "submap_events": len(lc.maps_frame_ids),
+               "matches": lc.match_stats}
+        log(f"[slam] {card}: batch {batch}: {SLAM_FRAMES} frames in {elapsed:.2f} s "
+            f"({SLAM_FRAMES / elapsed:.2f} scans/s, first run includes set-up); loops "
+            f"{[(i, j, round(t, 4), round(r, 4)) for i, j, t, r in loops]}; ATE {ate:.5f} m "
+            f"(odometry alone {odo_ate:.5f} m); B2 launches {launches}, {trips} active; "
+            f"B1 launches {b1.assoc_gn.launches}")
+        if not loops:
+            raise AssertionError(f"slam batch {batch}: no loop constraint")
+        if not any(abs(i - j) > 2 for i, j, *_ in before_last):
+            raise AssertionError(f"slam batch {batch}: the backend did not optimize before "
+                                 "the last frame")
+        for i, j, terr, rerr in loops:
+            if not (terr < LOOP_TRANS_M and rerr < LOOP_ROT_DEG):
+                raise AssertionError(f"slam batch {batch}: loop ({i}, {j}) off the ground "
+                                     f"truth by {terr} m, {rerr} deg")
+        if not ate < SLAM_ATE_M:
+            raise AssertionError(f"slam batch {batch}: ATE {ate} m")
+        if not 0 < trips <= launches:
+            raise AssertionError(f"slam batch {batch}: B2 launches {launches}, active {trips}")
+        out[f"batch{batch}"], slams[batch] = run, slam
+    pairs = {b: [(i, j) for i, j, *_ in out[f"batch{b}"]["loops"]] for b in (1, 4)}
+    if pairs[1] != pairs[4]:
+        raise AssertionError(f"slam: loop pairs differ, batch 1 {pairs[1]} vs 4 {pairs[4]}")
+    log(f"[slam] loop pairs identical at batch 1 and 4: {pairs[1]}")
+    out["match"], lc_inputs = match_profile(slams[1].loop_closure, card)
+    for batch in (1, 4):
+        slam, elapsed, _ = run_slam(batch, False, loader, frames, dev)
+        ate = ev.compute_ate(slam.get_relative_poses(), gt_rel)[0]
+        out[f"batch{batch}_no_loop_closure"] = {"seconds": elapsed, "ate_m": ate,
+                                                "scans_per_s": SLAM_FRAMES / elapsed}
+        log(f"[slam] {card}: batch {batch} without loop closure: {SLAM_FRAMES / elapsed:.2f} "
+            f"scans/s, ATE {ate:.5f} m")
+    return out, lc_inputs
+
+
+def lc_b2_args(lc_inputs) -> tuple:
+    """B2's inputs on a refine's first trip: the submap cloud (4096 rows,
+    padding included: the refine drops the padded queries by their mask) at
+    the identity, against a candidate's 4096 rows and validity mask."""
+    cloud, cand, cand_mask, _ = lc_inputs
+    return cloud, cand, cand_mask
+
+
+def cli_phase(card) -> dict:
+    """The verify recipe through the port's CLI, in a process of its own,
+    with no device override: it must run on the card."""
+    log_dir = ROOT / "build" / "chip_cli"
+    argv = CLI_OVERRIDES + [f"log_dir={log_dir}", "num_workers=8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pylidar_slam_tpu_torch.run", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the CLI failed:\n{proc.stderr[-4000:]}")
+    on_card = "on cuda" in proc.stderr
+    m = load_yaml_file(log_dir / "metrics.yaml")["synth_00"]
+    rate = next((line for line in proc.stderr.splitlines() if "scans/s" in line), "")
+    log(f"[cli] {card}: python -m pylidar_slam_tpu_torch.run {' '.join(argv)}: "
+        f"{seconds:.1f} s in all; {rate.split(': ', 1)[-1]}; tr_err {100 * m['tr_err']:.4f}% "
+        f"ATE {m['ATE']:.5f} m; bar: tr_err < {100 * CLI_TR_ERR:.0f}%, ATE < {CLI_ATE_M} m")
+    if not on_card:
+        raise AssertionError("the CLI did not run on the card")
+    if not (m["tr_err"] < CLI_TR_ERR and m["ATE"] < CLI_ATE_M):
+        raise AssertionError(f"cli: tr_err {m['tr_err']}, ATE {m['ATE']}")
+    return {"argv": argv, "seconds": seconds, "metrics": m, "rate_line": rate}
+
+
 def b2_inputs(odom, next_frame):
     """The surfel map after the main path, and the next frame's grid-sampled
     targets moved to their prior in the map's anchor frame -- what the
@@ -582,9 +792,10 @@ def _b2_case(name, queries, model, valid, expect=None) -> dict:
             "max_abs_err": abs_err}
 
 
-def compare_b2_phase(queries, model, valid) -> dict:
+def compare_b2_phase(queries, model, valid, lc_args) -> dict:
     dev = queries.device
-    rows = [_b2_case("surfel map, next frame", queries, model, valid)]
+    rows = [_b2_case("surfel map, next frame", queries, model, valid),
+            _b2_case("loop-closure refine", *lc_args)]
     gen = torch.Generator(device="cpu").manual_seed(0)
 
     def cloud(n, scale=20.0):
@@ -763,7 +974,7 @@ def time_sequence(name, loader, frames, dev, card) -> dict:
 B1_PARAMS = (1, 2, 0.6, "geman_mcclure", 0.4, 0.0)  # window 1x2, the main path's
 
 
-def times_phase(b1_inputs, b2_args, loader, frames, dev, card) -> dict:
+def times_phase(b1_inputs, b2_args, lc_args, loader, frames, dev, card) -> dict:
     b1_args = (*b1_inputs, *B1_PARAMS)
     sums = b1.assoc_gn(*b1_args)
     out = {"assoc_gn": kernel_times(
@@ -781,6 +992,16 @@ def times_phase(b1_inputs, b2_args, loader, frames, dev, card) -> dict:
     out["nn_argmin"] = kernel_times(
         "nn_argmin", lambda: b2.nn_argmin(*b2_args), lambda: b2.nn_argmin_plain(*b2_args),
         library, b2_bound(*b2_args), card, f"M={m} V={v}")
+    lq, lm, lv = lc_args
+    lmasked = torch.where(lv[:, None], lm, torch.full_like(lm, math.inf))
+
+    def lc_library():
+        return torch.cdist(lq, lmasked, compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
+
+    out["nn_argmin_loop_closure"] = kernel_times(
+        "nn_argmin", lambda: b2.nn_argmin(*lc_args), lambda: b2.nn_argmin_plain(*lc_args),
+        lc_library, b2_bound(*lc_args), card,
+        f"M={lq.shape[0]} V={lm.shape[0]} (loop-closure refine)")
     out["surfel"] = time_sequence("surfel", loader, frames, dev, card)
     return out
 
@@ -862,13 +1083,16 @@ def main() -> int:
     aggregated = phase("aggregated", aggregated_phase, loader, frames, dev)
     odom, surfel = phase("surfel", surfel_phase, loader, frames, dev)
     b2_in = b2_inputs(odom, next_frame)
-    compare_b2 = phase("compare B2", compare_b2_phase, *b2_in)
+    slam, lc_inputs = phase("slam", slam_phase, dev, card)
+    lc_args = lc_b2_args(lc_inputs)
+    compare_b2 = phase("compare B2", compare_b2_phase, *b2_in, lc_args)
+    cli = phase("cli", cli_phase, card)
     highway = phase("highway", highway_phase, dev, card)
     rs_loader, rs_frames = phase("setup rolling shutter", load_frames,
                                  acceptance.ROLLING_SHUTTER_KW)
     ct_icp = phase("ct_icp", ct_icp_phase, rs_loader, rs_frames, dev, card)
     profiles = phase("profiles", profiles_phase, rs_loader, rs_frames, dev)
-    times = phase("times", times_phase, b1_in, b2_in, loader, frames, dev, card)
+    times = phase("times", times_phase, b1_in, b2_in, lc_args, loader, frames, dev, card)
     compare = phase("compare", compare_phase, args.compare, b1_in, b2_in, card)
 
     out_dir = ROOT / "build"
@@ -876,8 +1100,9 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "compare_b1": compare_b1,
          "compare_b2": compare_b2, "aggregated": aggregated, "surfel": surfel,
-         "highway": highway, "ct_icp": ct_icp, "profiles": profiles,
-         "times": times, "compare": compare, "seconds": seconds}, indent=1))
+         "highway": highway, "ct_icp": ct_icp, "profiles": profiles, "slam": slam,
+         "cli": cli, "times": times, "compare": compare, "seconds": seconds},
+        indent=1, default=str))
     b1_paths = {"aggregated": aggregated["launches"], "highway": highway["launches"],
                 "ct_icp": ct_icp["elastic"]["launches"],
                 **{name: run["launches"] for name, run in profiles.items()}}
@@ -897,6 +1122,16 @@ def main() -> int:
             kernels[-1]["active_launches"] = run["active_launches"]
         if kname == "assoc_gn":
             kernels[-1]["launches_by_path"] = b1_paths
+    lc_t = times["nn_argmin_loop_closure"]
+    kernels[1]["launches_by_path"] = {"surfel": surfel["launches"],
+                                      "loop_closure": slam["batch1"]["b2_launches"]}
+    kernels[1]["active_launches_by_path"] = {
+        "surfel": surfel["active_launches"], "loop_closure": slam["batch1"]["b2_active_launches"]}
+    kernels[1]["loop_closure_shape"] = {
+        "m": int(lc_args[0].shape[0]), "v": int(lc_args[1].shape[0]), "ms": lc_t["wall_ms"],
+        "device_ms": lc_t["device"]["ms"], "plain_ms": lc_t["plain_ms"],
+        "bound_ms": lc_t["bound_ms"], "bound_by": lc_t["bound_by"],
+        "roofline_share": lc_t["roofline_share"], "library_ms": lc_t["library_ms"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

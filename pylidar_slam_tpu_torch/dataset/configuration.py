@@ -26,6 +26,10 @@ class DatasetConfig:
 
 
 class DatasetLoader:
+    @classmethod
+    def max_num_workers(cls) -> int:
+        return 20
+
     @staticmethod
     def absolute_gt_key() -> str:
         return "absolute_pose_gt"

@@ -8,7 +8,10 @@ encoded on the host (rimg8 range image or scrubbed float32 cloud); in
 batched mode a whole batch is stacked, uploaded from pinned memory in one
 non-blocking copy and run through ``batch_step``, with the
 constant-velocity prior chained on the device.  Poses stay on the device
-until ``get_relative_poses`` fetches the whole log at once.
+until ``get_relative_poses`` fetches the whole log at once; when a
+downstream stage needs them per frame (``emit_batch_poses``), each batch's
+params are copied to pinned host memory behind a CUDA event and
+``drain_batch_results`` hands over the batches whose copy has landed.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from pylidar_slam_tpu_torch.ops import bev, projection
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.utils import assert_debug
+from pylidar_slam_tpu_torch.utils.transfer import copy_to_host_async
 
 # The continuous-time pose surfaces: sweep fraction of each reported pose.
 _POSE_FRACTIONS = {"mid_pose": 0.5, "end_pose": 1.0}
@@ -142,7 +146,7 @@ class ICPFrameToModel:
 
     def __init__(self, config: ICPFrameToModelConfig,
                  projector: projection.SphericalProjection = None,
-                 device=None):
+                 device=None, **kwargs):
         if not isinstance(config, ICPFrameToModelConfig):
             config = dataclass_from_dict(ICPFrameToModelConfig, config)
         self.config = config
@@ -221,6 +225,11 @@ class ICPFrameToModel:
                 elastic=self._elastic,
                 alignment_mode=str(align_cfg.get("mode", "point_to_plane_gauss_newton")),
             )
+        # Batched mode: when True, every flush copies its (B, 6) params to
+        # pinned host memory (one transfer per batch, behind a CUDA event)
+        # and drain_batch_results hands per-frame float64 relative poses to
+        # the downstream stages (loop closure, backend).
+        self.emit_batch_poses = False
         self.init()
 
     # -- lifecycle ----------------------------------------------------------
@@ -241,6 +250,8 @@ class ICPFrameToModel:
         # Device-side pose log: (k, 6) params per flush, fetched once.
         self._params_log: list = []
         self._frame_buffer: list = []  # batched mode: host upload buffers
+        self._pending_params: list = []  # ([host params], event or None)
+        self._pending_rposes: list = []
         self._iter = 0
         self.last_rpose_device: Optional[torch.Tensor] = None
         self._boot_cloud: Optional[np.ndarray] = None
@@ -461,9 +472,13 @@ class ICPFrameToModel:
             self._map_state, self._delta_since_update,
             self.last_rpose_device, pts, msks)
         self._params_log.append(params)
+        if self.emit_batch_poses:
+            self._pending_params.append(copy_to_host_async(params))
 
     def _flush_remainder(self):
         """Processes a final partial buffer with the per-frame step."""
+        # the flushed batches' poses come first in the pose stream
+        self._collect_params(wait=True)
         for buf in self._frame_buffer:
             points, mask = self._upload(buf[None])[0], self._ones_mask()
             (self._map_state, self._delta_since_update, rpose, pose_params,
@@ -471,7 +486,35 @@ class ICPFrameToModel:
                                  points, mask, self.last_rpose_device)
             self.last_rpose_device = rpose
             self._params_log.append(pose_params[None])
+            if self.emit_batch_poses:
+                self._pending_params.append(copy_to_host_async(pose_params[None]))
         self._frame_buffer = []
+
+    def _collect_params(self, wait: bool):
+        """Moves the fetched params of finished flushes, in flush order, to
+        the pose stream; `wait` waits for every copy, else it stops at the
+        first whose event has not completed."""
+        while self._pending_params:
+            (host,), event = self._pending_params[0]
+            if event is not None:
+                if wait:
+                    event.synchronize()
+                elif not event.query():
+                    break
+            self._pending_params.pop(0)
+            self._pending_rposes.extend(
+                _pose_matrix_f64(p) for p in host.numpy().astype(np.float64))
+
+    def drain_batch_results(self, final: bool = False) -> list:
+        """Returns (and clears) float64 relative poses for the frames of the
+        flushes whose params have reached the host since the last drain
+        (batched mode only); `final` flushes the partial batch and waits."""
+        if final:
+            self.finish()
+        self._collect_params(wait=final)
+        out = self._pending_rposes
+        self._pending_rposes = []
+        return out
 
     def finish(self):
         """Flushes a partially filled batch buffer at sequence end."""

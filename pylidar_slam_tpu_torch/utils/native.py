@@ -10,7 +10,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import logging
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -41,6 +41,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
+    lib.grid_sample_mask.restype = ctypes.c_int
+    lib.grid_sample_mask.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.lc_subsample.restype = ctypes.c_int
+    lib.lc_subsample.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
     return lib
 
 
@@ -63,3 +70,34 @@ def encode_range_image_planes(points: np.ndarray, h: int, w: int,
                            2,  # mode 2: range pixels + angular planes
                            out.ctypes.data_as(ctypes.c_void_p))
     return out
+
+
+def grid_sample_mask(points: np.ndarray, voxel_size: float) -> Optional[np.ndarray]:
+    """O(n) hash-table voxel sampling mask (first point per voxel), or None
+    if the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    points = np.ascontiguousarray(points[:, :3], np.float32)
+    keep = np.zeros((points.shape[0],), np.uint8)
+    lib.grid_sample_mask(points.ctypes.data_as(ctypes.c_void_p),
+                         points.shape[0], ctypes.c_float(voxel_size),
+                         keep.ctypes.data_as(ctypes.c_void_p))
+    return keep.astype(bool)
+
+
+def lc_subsample(points: np.ndarray, voxel_size: float,
+                 cap: int) -> Optional[Tuple[np.ndarray, int]]:
+    """Fused zero-row drop + first point per voxel + an even selection of at
+    most `cap` of them, in one O(n) pass: a zero-padded (cap, 3) float32
+    buffer and its number of valid rows, or None if the native library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    points = np.ascontiguousarray(points[:, :3], np.float32)
+    out = np.zeros((cap, 3), np.float32)
+    n = lib.lc_subsample(points.ctypes.data_as(ctypes.c_void_p),
+                         points.shape[0], ctypes.c_float(voxel_size),
+                         cap, out.ctypes.data_as(ctypes.c_void_p))
+    return out, int(n)

@@ -208,3 +208,31 @@ def test_nn_argmin_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="active"):
         b2.nn_argmin(queries, model, valid, active=torch.ones(2, dtype=torch.bool,
                                                               device=cuda))
+
+
+@pytest.mark.gpu
+def test_icp_refine_on_b2_matches_the_cpu(cuda):
+    """The loop closure's refine on the card (B2, the device flag skipping
+    frozen and gated-off candidates) against the same refine on the CPU
+    (the plain version): launches counted per candidate and trip, poses
+    within 1e-4."""
+    from pylidar_slam_tpu_torch.ops import icp3d
+    rng = np.random.default_rng(3)
+    cloud = rng.uniform(-20, 20, (4096, 3)).astype(np.float32)
+    cloud[:, 2] *= 0.1
+    rot = np.array([[np.cos(0.05), -np.sin(0.05), 0], [np.sin(0.05), np.cos(0.05), 0],
+                    [0, 0, 1]], np.float32)
+    target = (cloud @ rot.T + np.array([0.3, -0.2, 0.0], np.float32))[None].repeat(3, 0)
+    masks = np.ones((3, 4096), bool)
+    masks[:, 4000:] = False
+    active = torch.tensor([True, True, False])
+    args = [torch.from_numpy(cloud), torch.from_numpy(target), torch.from_numpy(masks)]
+    cpu = icp3d.icp_align(args[0], args[1], target_mask=args[2], active=active,
+                          max_corr_dist=2.0)
+    before = b2.nn_argmin.launches
+    dev = icp3d.icp_align(*(a.to(cuda) for a in args[:2]), target_mask=args[2].to(cuda),
+                          active=active.to(cuda), max_corr_dist=2.0)
+    assert b2.nn_argmin.launches == before + 3 * 20
+    assert torch.equal(dev.num_iters.cpu(), cpu.num_iters)
+    assert int(dev.num_iters[2]) == 0
+    np.testing.assert_allclose(dev.transform.cpu().numpy(), cpu.transform.numpy(), atol=1e-4)
