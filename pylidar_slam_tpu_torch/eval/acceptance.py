@@ -3,8 +3,10 @@ profiles (port of the part of ``pylidar_slam_tpu.eval.acceptance`` the
 ported slices need).
 
 The JAX package's ``bench.build_icp_config("aggregated", "rimg8")`` is
-pinned equal to the aggregated champion, and its ``config/slam/odometry``
-profiles to ``profile_configs()`` (the port reads no YAML).
+pinned equal to the aggregated champion, ``build_icp_config("voxel",
+"rimg8")`` to ``profile_configs()["voxel"]``, and its
+``config/slam/odometry`` profiles to ``profile_configs()`` (the port reads
+no YAML).
 """
 from __future__ import annotations
 
@@ -46,7 +48,8 @@ def profile_configs():
     """The repo's CT-ICP profiles and its high-speed profile
     (``config/slam/odometry/<name>.yaml``), with the runner settings they
     are run with: f32 uploads padded to 65,536 points for the CT-ICP
-    profiles; batched rimg8 uploads (12 frames) for the highway profile."""
+    profiles; batched rimg8 uploads (12 frames) for the highway profile.
+    Also the voxel-table map's bench configuration."""
     from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import \
         ICPFrameToModelConfig
     return {
@@ -78,6 +81,18 @@ def profile_configs():
                            model_normals=True, normals_fit="centered"),
             alignment={"mode": "point_to_plane_gauss_newton",
                        "gauss_newton_config": {"scheme": "geman_mcclure",
+                                               "sigma": 0.4, "max_iters": 1}},
+            num_points_padded=66560, upload_format="rimg8", batch_size=12),
+        # The voxel-table map as bench.build_icp_config("voxel", "rimg8")
+        # builds it with the bench's defaults: the aggregated champion's
+        # schedule and alignment, batched rimg8 uploads.
+        "voxel": ICPFrameToModelConfig(
+            max_num_alignments=8, reassoc_every=8, reassoc_motion_m=0.2,
+            data_key="numpy_pc",
+            local_map={"type": "voxel_local_map", "local_map_size": 30,
+                       "map_voxel": 0.4, "max_neighbor_dist": 0.4,
+                       "table_slots": 262144, "target_samples": 8192},
+            alignment={"gauss_newton_config": {"scheme": "geman_mcclure",
                                                "sigma": 0.4, "max_iters": 1}},
             num_points_padded=66560, upload_format="rimg8", batch_size=12),
     }

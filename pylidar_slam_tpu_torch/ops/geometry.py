@@ -1,16 +1,22 @@
 """Vertex-map geometry (torch port of ``pylidar_slam_tpu.ops.geometry``):
-the box-filtered covariance normal map (channels-last ``(H, W, 3)``) and the
-k-NN plane normals of the surfel map.
+the box-filtered covariance normal map (channels-last ``(H, W, 3)``), the
+k-NN plane normals of the surfel map and the projective association of the
+ring-buffer map (per-pixel min over K reference maps).
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from pylidar_slam_tpu_torch.ops.projection import point_norm
+
+
+def mask_not_null(tensor: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """True where at least one channel along `dim` is non-zero (keepdim)."""
+    return torch.amax(torch.abs(tensor), dim=dim, keepdim=True) > 0
 
 
 def box_filter(image: torch.Tensor, kernel_size: int) -> torch.Tensor:
@@ -180,3 +186,43 @@ def knn_plane_normals(neighbors: torch.Tensor, valid: torch.Tensor,
     n = smallest_eigenvector_3x3(cov / count[..., None])
     enough = torch.sum(valid, dim=1) >= min_neighbors
     return torch.where(enough[:, None], n, torch.zeros_like(n))
+
+
+def oriented_normal_map(vertex_map: torch.Tensor, kernel_size: int = 5) -> torch.Tensor:
+    """``compute_normal_map`` with the normals turned towards the sensor."""
+    n = compute_normal_map(vertex_map, kernel_size)
+    flip = torch.sum(n * vertex_map, dim=-1, keepdim=True) > 0
+    return torch.where(flip, -n, n)
+
+
+def compute_neighbors(vm_target: torch.Tensor, vm_reference: torch.Tensor,
+                      reference_fields: Optional[torch.Tensor] = None):
+    """Projective nearest neighbour: per pixel, the closest of K reference
+    maps' vertices at the same pixel.
+
+    Args:
+        vm_target: (H, W, 3) target vertex map.
+        vm_reference: (K, H, W, 3) reference vertex maps.
+        reference_fields: optional (K, H, W, C) fields gathered at the argmin.
+
+    Returns (neighbors (H, W, 3), fields (H, W, C) or None), zero where the
+    target pixel is null or no reference vertex is.  The first minimum wins
+    ties (``torch.argmin``, as ``jnp.argmin``).
+    """
+    mask_target = mask_not_null(vm_target)  # (H, W, 1)
+    mask_reference = mask_not_null(vm_reference)  # (K, H, W, 1)
+    diff = point_norm(vm_target[None] - vm_reference)[..., None]
+    inf = torch.full_like(diff, math.inf)
+    diff = torch.where(mask_reference & mask_target[None], diff, inf)[..., 0]
+
+    best = torch.argmin(diff, dim=0)  # (H, W)
+    best_dist = torch.gather(diff, 0, best[None])[0]
+    keep = torch.isfinite(best_dist)[..., None] & mask_target
+
+    def take(maps):
+        got = torch.gather(maps, 0, best[None, ..., None].expand(
+            1, *maps.shape[1:]))[0]
+        return torch.where(keep, got, torch.zeros_like(got))
+
+    fields = None if reference_fields is None else take(reference_fields)
+    return take(vm_reference), fields

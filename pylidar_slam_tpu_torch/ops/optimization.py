@@ -8,7 +8,7 @@ without a host sync (``cholesky_ex`` reports failure in a tensor).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -180,6 +180,13 @@ def solve_normal_equations(h: torch.Tensor, g: torch.Tensor,
     return torch.where(singular, torch.zeros_like(dx), dx), singular
 
 
+class GNResult(NamedTuple):
+    params: torch.Tensor  # (6,) optimized parameters
+    loss: torch.Tensor  # () sum of squared weighted residuals
+    delta_norm: torch.Tensor  # () norm of the last step
+    singular: torch.Tensor  # () bool: hit a singular 6x6 system
+
+
 def gauss_newton_step(res: torch.Tensor, jac: torch.Tensor,
                       weights: torch.Tensor,
                       det_threshold: float = 1.0e-7,
@@ -200,3 +207,37 @@ def gauss_newton_step(res: torch.Tensor, jac: torch.Tensor,
             6, dtype=h.dtype, device=h.device)
     dx, singular = solve_normal_equations(h, g, det_threshold)
     return dx, torch.sum(wres * wres), singular
+
+
+def gauss_newton(x0: torch.Tensor, res_fun, jac_fun, max_iters: int = 10,
+                 norm_stop_criterion: float = 1.0e-3,
+                 scheme: str = "least_square", sigma: float = 0.5,
+                 sq_dists: Optional[torch.Tensor] = None,
+                 eps: float = 1.0e-4) -> GNResult:
+    """Gauss-Newton on a 6-parameter pose: `res_fun(x) -> (N,)`,
+    `jac_fun(x) -> (N, 6)`, weights from the residuals of each step.
+
+    At least one step; then up to `max_iters` in all, stopping once
+    ||dx|| < `norm_stop_criterion` or the system is singular.  A step whose
+    residual norm is below 1e-7 leaves x unchanged.  The JAX early-exit loop
+    becomes fixed trips whose carries freeze once the stop condition holds,
+    so nothing waits on the host.
+    """
+    def body(x):
+        jac = jac_fun(x)
+        res = res_fun(x)
+        weights = robust_weights(scheme, res, sigma, sq_dists, eps)
+        dx, loss, singular = gauss_newton_step(res, jac, weights)
+        degenerate = torch.linalg.vector_norm(res) < 1.0e-7
+        dx = torch.where(degenerate, torch.zeros_like(dx), dx)
+        return x + dx, loss, torch.linalg.vector_norm(dx), singular
+
+    x, loss, dn, singular = body(x0)
+    for _ in range(1, max(int(max_iters), 1)):
+        active = (dn >= norm_stop_criterion) & (~singular)
+        nx, nloss, ndn, nsing = body(x)
+        x = torch.where(active, nx, x)
+        loss = torch.where(active, nloss, loss)
+        dn = torch.where(active, ndn, dn)
+        singular = torch.where(active, nsing, singular)
+    return GNResult(x, loss, dn, singular)

@@ -14,7 +14,7 @@ Images are channels-last ``(H, W, C)``, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +86,65 @@ class SphericalProjection(NamedTuple):
         return (torch.where(invalid, minus_one, proj_row),
                 torch.where(invalid, minus_one, proj_col),
                 torch.where(invalid, torch.zeros_like(r), r))
+
+
+def build_vertex_map(points: torch.Tensor, proj: SphericalProjection,
+                     mask: Optional[torch.Tensor] = None,
+                     channels: Optional[torch.Tensor] = None,
+                     default_value: float = 0.0) -> torch.Tensor:
+    """Rasterizes padded (..., N, 3) point clouds into (..., H, W, C) vertex
+    maps, the closest point winning its pixel.
+
+    Two scatter-min passes, as in the JAX package: the min range per pixel,
+    then the min point index among the range winners (deterministic ties).
+    Invalid points (masked, zero range, outside the image) go to a sentinel
+    bucket ``h*w``, sliced off afterwards.  Leading batch dims get disjoint
+    bucket ranges in one scatter.  `channels` (..., N, C) are gathered at
+    the winners (default: the xyz); empty pixels hold `default_value`.
+    """
+    if channels is None:
+        channels = points
+    lead = points.shape[:-2]
+    n = points.shape[-2]
+    h, w = proj.height, proj.width
+    b = int(np.prod(lead)) if lead else 1
+    pts = points.reshape(b, n, 3)
+    ch = channels.reshape(b, n, channels.shape[-1])
+    dev = points.device
+
+    rows, cols, r = proj.project(pts)
+    rows = torch.round(rows)
+    cols = torch.round(cols)
+    valid = (rows >= 0) & (rows <= h - 1) & (cols >= 0) & (cols <= w - 1) & (r > 0.0)
+    if mask is not None:
+        valid = valid & mask.reshape(b, n)
+    bucket = h * w + 1
+    flat = torch.where(valid, rows.to(torch.int64) * w + cols.to(torch.int64),
+                       torch.full_like(rows, h * w, dtype=torch.int64))
+    flat = flat + torch.arange(b, dtype=torch.int64, device=dev)[:, None] * bucket
+    flat = flat.reshape(-1)
+
+    inf = torch.full_like(r, math.inf)
+    rmin = torch.full((b * bucket,), math.inf, dtype=r.dtype, device=dev).scatter_reduce(
+        0, flat, torch.where(valid, r, inf).reshape(-1), "amin")
+    is_winner = valid.reshape(-1) & (r.reshape(-1) <= rmin[flat])
+    idx = torch.arange(n, dtype=torch.int64, device=dev).repeat(b)
+    idx_min = torch.full((b * bucket,), n, dtype=torch.int64, device=dev).scatter_reduce(
+        0, flat, torch.where(is_winner, idx, torch.full_like(idx, n)), "amin")
+    idx_min = idx_min.reshape(b, bucket)[:, :h * w]
+
+    hit = idx_min < n
+    gathered = torch.gather(ch, 1, torch.clamp(idx_min, 0, n - 1)[..., None].expand(
+        b, h * w, ch.shape[-1]))
+    out = torch.where(hit[..., None], gathered,
+                      torch.full_like(gathered, default_value))
+    return out.reshape(lead + (h, w, ch.shape[-1]))
+
+
+def vertex_map_to_points(vmap: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, C) vertex map -> (..., H*W, C) point list (zero-padded)."""
+    shape = vmap.shape
+    return vmap.reshape(*shape[:-3], shape[-3] * shape[-2], shape[-1])
 
 
 def np_encode_range_image(pts: np.ndarray, proj: SphericalProjection,

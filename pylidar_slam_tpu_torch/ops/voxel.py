@@ -1,7 +1,6 @@
-"""Voxel quantization, hashing and grid sampling on fixed-size padded clouds
-(torch port of the part of ``pylidar_slam_tpu.ops.voxel`` the surfel map
-needs; ``voxel_normal_distribution`` waits for the voxel map, ROADMAP.md
-A.11).
+"""Voxel quantization, hashing, grid sampling and per-voxel normal
+distributions on fixed-size padded clouds (torch port of
+``pylidar_slam_tpu.ops.voxel``).
 
 The spatial hash is the reference's three-prime hash evaluated in int32
 with wrap-around.  The port computes it exactly in int64 and wraps it back
@@ -10,7 +9,7 @@ int32 products.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -65,3 +64,53 @@ def grid_sample_mask(points: torch.Tensor, voxel_size: float,
         first = first & mask[order]
     keep = torch.zeros((n,), dtype=torch.bool, device=points.device)
     return keep.index_put((order,), first)
+
+
+class VoxelStats(NamedTuple):
+    """Per-voxel normal distribution over a padded capacity of V slots."""
+    sizes: torch.Tensor  # (V,) int32 points in each voxel (0 = empty)
+    means: torch.Tensor  # (V, 3)
+    covariances: torch.Tensor  # (V, 3, 3)
+    point_voxel_ids: torch.Tensor  # (N,) int32 voxel slot of each input point
+
+
+def voxel_normal_distribution(points: torch.Tensor, voxel_size: float,
+                              mask: Optional[torch.Tensor] = None,
+                              capacity: Optional[int] = None) -> VoxelStats:
+    """Per-voxel mean and (unnormalized, mean-corrected) covariance by a
+    sweep over the points sorted by voxel hash: voxel slots are in
+    ascending hash order, unused slots have size 0, and voxels past
+    `capacity` (default N) are dropped."""
+    n = points.shape[0]
+    v = capacity or n
+    dev = points.device
+    hashes = voxel_hash(voxelise(points, voxel_size))
+    if mask is not None:
+        hashes = torch.where(mask, hashes, torch.full_like(hashes, INT32_MAX))
+    order = torch.argsort(hashes, stable=True)
+    sorted_h = hashes[order]
+    sorted_pts = points[order]
+    first = torch.ones((n,), dtype=torch.bool, device=dev)
+    first[1:] = sorted_h[1:] != sorted_h[:-1]
+    seg_ids = torch.cumsum(first.to(torch.int64), 0) - 1  # 0..V-1, sorted order
+
+    valid = torch.ones((n,), dtype=torch.bool, device=dev) if mask is None \
+        else mask[order]
+    w = valid.to(points.dtype)
+    slots = max(v, n)  # segments past `capacity` land in rows sliced off
+
+    def segment_sum(values):
+        out = values.new_zeros((slots,) + values.shape[1:])
+        return out.index_add_(0, seg_ids, values)[:v]
+
+    sizes = segment_sum(valid.to(torch.int32))
+    sums = segment_sum(sorted_pts * w[:, None])
+    outer = (sorted_pts[:, :, None] * sorted_pts[:, None, :]) * w[:, None, None]
+    sq_sums = segment_sum(outer)
+    counts = torch.clamp(sizes, min=1).to(points.dtype)
+    means = sums / counts[:, None]
+    covs = sq_sums - counts[:, None, None] * (means[:, :, None] * means[:, None, :])
+    point_ids = torch.zeros((n,), dtype=torch.int32, device=dev).index_put(
+        (order,), seg_ids.to(torch.int32))
+    return VoxelStats(sizes=sizes, means=means, covariances=covs,
+                      point_voxel_ids=point_ids)

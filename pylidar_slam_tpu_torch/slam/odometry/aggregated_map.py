@@ -33,7 +33,7 @@ from pylidar_slam_tpu_torch.ops.kernels.assoc_gn import (
     assoc_gn, unpack, window_associate_images)
 from pylidar_slam_tpu_torch.ops.optimization import solve_normal_equations
 from pylidar_slam_tpu_torch.ops.projection import point_norm
-from pylidar_slam_tpu_torch.slam.odometry.local_map import LocalMapConfig
+from pylidar_slam_tpu_torch.slam.odometry.local_map import LocalMapConfig, select_state
 
 
 @dataclass
@@ -93,13 +93,6 @@ def agg_state_from_numpy(arrays: Dict[str, np.ndarray], device) -> AggMapState:
 def agg_state_to_numpy(state: AggMapState) -> Dict[str, np.ndarray]:
     return {name: t.detach().cpu().numpy()
             for name, t in zip(AggMapState._fields, state)}
-
-
-def select_state(cond: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
-    """Per-field torch.where(cond, a, b) of two map states, for a scalar
-    bool tensor: both branches of a JAX ``lax.cond``, selected on the
-    device."""
-    return type(a)(*[torch.where(cond, x, y) for x, y in zip(a, b)])
 
 
 def dequant_upload(points: torch.Tensor, mask: torch.Tensor,

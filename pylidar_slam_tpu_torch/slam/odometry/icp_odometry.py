@@ -1,38 +1,45 @@
 """Frame-to-Model ICP odometry (torch port of
-``pylidar_slam_tpu.slam.odometry.icp_odometry``), in the aggregated-map and
-surfel ("kdtree_local_map") modes.
+``pylidar_slam_tpu.slam.odometry.icp_odometry``) over its four local maps:
+the projective ring buffer (the default), the aggregated map, the surfel
+("kdtree_local_map") map and the voxel table.
 
 The host wrapper keeps the reference's ``data_dict`` key contract
-(``init_rpose`` in, ``odometry_pose`` / ``odometry_pc`` out).  Frames are
-encoded on the host (rimg8 range image or scrubbed float32 cloud); in
-batched mode a whole batch is stacked, uploaded from pinned memory in one
-non-blocking copy and run through ``batch_step``, with the
-constant-velocity prior chained on the device.  Poses stay on the device
-until ``get_relative_poses`` fetches the whole log at once; when a
-downstream stage needs them per frame (``emit_batch_poses``), each batch's
-params are copied to pinned host memory behind a CUDA event and
+(``init_rpose`` in, ``odometry_pose`` / ``odometry_pc`` out).  The input is
+an (N, 3+) point cloud or an (H, W, 3) / (3, H, W) vertex map.  The
+projective map rasterizes each frame's cloud into a vertex map on the device
+and runs one frame per step.  The other maps take clouds encoded on the host
+(rimg8 range image or scrubbed float32 cloud); in batched mode a whole batch
+is stacked, uploaded from pinned memory in one non-blocking copy and run
+through ``batch_step``, with the constant-velocity prior chained on the
+device.  Poses stay on the device until ``get_relative_poses`` fetches the
+whole log at once; when a downstream stage needs them per frame
+(``emit_batch_poses``), each batch's params are copied to pinned host
+memory behind a CUDA event and
 ``drain_batch_results`` hands over the batches whose copy has landed.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from pylidar_slam_tpu_torch.config import MISSING, dataclass_from_dict
-from pylidar_slam_tpu_torch.ops import bev, projection
+from pylidar_slam_tpu_torch.ops import bev, optimization, projection, se3
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
+from pylidar_slam_tpu_torch.slam.odometry import local_map as lm
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
+from pylidar_slam_tpu_torch.slam.odometry import voxel_map as vm
 from pylidar_slam_tpu_torch.utils import assert_debug
 from pylidar_slam_tpu_torch.utils.transfer import copy_to_host_async
 
 # The continuous-time pose surfaces: sweep fraction of each reported pose.
 _POSE_FRACTIONS = {"mid_pose": 0.5, "end_pose": 1.0}
 POSE_TYPES = ("", "begin_pose") + tuple(_POSE_FRACTIONS)
-# Local maps still to port, with their ROADMAP.md items.
-_UNPORTED_MAPS = {"voxel_local_map": "A.11", "projective_local_map": "A.12"}
+MAP_TYPES = ("projective_local_map", "aggregated_local_map",
+             "kdtree_local_map", "voxel_local_map")
 
 
 # ----------------------------------------------------------------------------
@@ -131,6 +138,110 @@ class ICPFrameToModelConfig(OdometryConfig):
     batch_results_lag: int = 4
 
 
+class ICPStepResult(NamedTuple):
+    pose_params: torch.Tensor  # (6,)
+    pose_matrix: torch.Tensor  # (4, 4)
+    loss: torch.Tensor  # () final weighted residual loss
+    num_iters: torch.Tensor  # () int32 ICP iterations run
+    num_matches: torch.Tensor  # () int32 valid correspondences in the last one
+    inserted: torch.Tensor  # () bool: the frame went into the map
+
+
+def make_icp_frame_step(proj: projection.SphericalProjection,
+                        max_num_alignments: int,
+                        threshold_delta_pose: float,
+                        threshold_trans: float,
+                        threshold_rot: float,
+                        gn: GaussNewtonConfig,
+                        normals_kernel_size: int = 5):
+    """Builds the projective map's per-frame step:
+    ``step(map_state, delta_since_update, vmap, init_pose)`` ->
+    ``(map_state', delta_since_update', ICPStepResult)``, plus
+    ``first_frame(map_state, vmap)`` and
+    ``build_vmap_from_points(points, mask)``.
+
+    Each ICP trip rasterizes the target at the current pose, associates it
+    projectively with the K model maps and runs robust point-to-plane GN
+    from zero.  The JAX early-exit loop is `max_num_alignments` fixed trips
+    whose carries freeze once the stop condition holds.
+    """
+
+    def register(map_state: lm.ProjectiveMapState, vmap: torch.Tensor,
+                 init_pose: torch.Tensor):
+        tgt_pts = vmap.reshape(-1, 3)
+        tgt_valid = torch.amax(torch.abs(tgt_pts), dim=-1) > 0
+        dev, dt = vmap.device, vmap.dtype
+        zero_params = torch.zeros(6, dtype=dt, device=dev)
+        pose = init_pose
+        delta_norm = torch.full((), math.inf, dtype=dt, device=dev)
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        loss = torch.zeros((), dtype=dt, device=dev)
+        matches = torch.zeros((), dtype=torch.int32, device=dev)
+        singular = torch.zeros((), dtype=torch.bool, device=dev)
+        for _ in range(max_num_alignments):
+            # The JAX loop's condition; once false every carry stays frozen.
+            active = (delta_norm >= threshold_delta_pose) & (~singular)
+            pts = se3.apply_transformation(tgt_pts, pose)
+            tvmap = projection.build_vertex_map(pts, proj, mask=tgt_valid)
+            nbrs, nrms = lm.nearest_neighbors(map_state, tvmap)
+            t = tvmap.reshape(-1, 3)
+            r = nbrs.reshape(-1, 3)
+            n = nrms.reshape(-1, 3)
+            mask = (torch.amax(torch.abs(t), dim=-1) > 0) & \
+                (torch.amax(torch.abs(r), dim=-1) > 0) & \
+                (torch.amax(torch.abs(n), dim=-1) > 0)
+            sq_dists = torch.sum((t - r) ** 2, dim=-1)
+            # Robust GN on the correspondences from zero params (one step by
+            # default, the alignment's gauss_newton_config)
+            result = optimization.gauss_newton(
+                zero_params,
+                lambda p: optimization.point_to_plane_residuals(p, t, r, n, mask),
+                lambda p: optimization.point_to_plane_jacobian(p, t, n, mask),
+                max_iters=gn.max_iters, norm_stop_criterion=gn.norm_stop_criterion,
+                scheme=gn.scheme, sigma=gn.sigma, sq_dists=sq_dists, eps=gn.eps)
+            dn = torch.linalg.vector_norm(result.params)
+            # A sub-threshold delta is not composed (the reference breaks
+            # first).
+            apply = (dn >= threshold_delta_pose) & (~result.singular)
+            new_pose = se3.normalize_pose_matrix(
+                (se3.build_pose_matrix(result.params[None])[0] @ pose)[None])[0]
+            pose = torch.where(active & apply, new_pose, pose)
+            delta_norm = torch.where(active, dn, delta_norm)
+            it = it + active.to(torch.int32)
+            loss = torch.where(active, result.loss, loss)
+            matches = torch.where(active, mask.sum().to(torch.int32), matches)
+            singular = torch.where(active, result.singular, singular)
+        return se3.from_pose_matrix(pose[None])[0], pose, loss, it, matches
+
+    def step(map_state: lm.ProjectiveMapState, delta_since_update: torch.Tensor,
+             vmap: torch.Tensor, init_pose: torch.Tensor):
+        pose_params, pose_mat, loss, it, matches = register(map_state, vmap, init_pose)
+        # Insert when the motion since the last inserted frame passes the
+        # thresholds.
+        new_delta = delta_since_update @ pose_mat
+        d_params = se3.from_pose_matrix(new_delta[None])[0]
+        insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
+            (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
+        map_state = lm.update_projective_map(map_state, pose_mat, vmap, proj, insert,
+                                             normals_kernel_size=normals_kernel_size)
+        eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
+        delta_out = torch.where(insert, eye, new_delta)
+        return map_state, delta_out, ICPStepResult(pose_params, pose_mat, loss, it,
+                                                   matches, insert)
+
+    def first_frame(map_state: lm.ProjectiveMapState, vmap: torch.Tensor):
+        """Initializes the map with the first frame."""
+        eye = torch.eye(4, dtype=vmap.dtype, device=vmap.device)
+        return lm.update_projective_map(
+            map_state, eye, vmap, proj, torch.ones((), dtype=torch.bool, device=vmap.device),
+            normals_kernel_size=normals_kernel_size)
+
+    def build_vmap_from_points(points: torch.Tensor, mask: torch.Tensor):
+        return projection.build_vertex_map(points, proj, mask=mask)
+
+    return step, first_frame, build_vmap_from_points
+
+
 # ----------------------------------------------------------------------------
 # Host-side odometry module (data_dict protocol)
 # ----------------------------------------------------------------------------
@@ -138,8 +249,8 @@ class ICPFrameToModelConfig(OdometryConfig):
 class ICPFrameToModel:
     """Host wrapper driving the per-frame / batched device step.
 
-    Input under ``config.data_key``: an (N, 3+) point cloud (numpy or a CPU
-    tensor).
+    Input under ``config.data_key``: an (N, 3+) point cloud or an
+    (H, W, 3) / (3, H, W) vertex map, numpy or a tensor.
     """
 
     _UPLOAD_BUCKET = 16384
@@ -156,18 +267,19 @@ class ICPFrameToModel:
 
         lm_dict = config.local_map if isinstance(config.local_map, dict) else {}
         mode = lm_dict.get("type", "projective_local_map")
-        if mode in _UNPORTED_MAPS:
-            raise NotImplementedError(
-                f"local_map.type='{mode}' is not ported yet: ROADMAP.md "
-                f"{_UNPORTED_MAPS[mode]}")
-        assert_debug(mode in ("aggregated_local_map", "kdtree_local_map"),
-                     f"Unknown local_map type '{mode}'")
+        assert_debug(mode in MAP_TYPES,
+                     f"Unknown local_map type '{mode}'. Known: {list(MAP_TYPES)}")
         self._mode = mode
         fmt = str(config.upload_format or "f32")
         if fmt not in ("f32", "rimg8"):
             raise NotImplementedError(
                 f"upload_format='{fmt}': only rimg8 and f32 are ported "
                 f"(ROADMAP.md, 'What the port leaves out')")
+        assert_debug(
+            fmt == "f32" or mode != "projective_local_map",
+            f"upload_format='{fmt}' has no effect with "
+            f"local_map.type=projective_local_map (it consumes vertex maps, "
+            f"not host point uploads) -- use another map, or drop the override")
         if int(config.shard_points or 0) > 1:
             raise NotImplementedError(
                 "shard_points is not ported yet: ROADMAP.md A.13")
@@ -180,7 +292,34 @@ class ICPFrameToModel:
             GaussNewtonConfig, align_cfg.get("gauss_newton_config", {}))
         self._elastic = bool(align_cfg.get("elastic", False))
 
-        if mode == "kdtree_local_map":
+        if mode == "projective_local_map":
+            self._proj_cfg = dataclass_from_dict(lm.ProjectiveLocalMapConfig, lm_dict)
+            self.local_map_size = int(self._proj_cfg.local_map_size)
+            self._step, self._first, self._build_vmap = make_icp_frame_step(
+                proj=projector,
+                max_num_alignments=int(config.max_num_alignments),
+                threshold_delta_pose=float(config.threshold_delta_pose),
+                threshold_trans=float(config.threshold_trans),
+                threshold_rot=float(config.threshold_rot),
+                gn=gn_cfg,
+                normals_kernel_size=int(self._proj_cfg.normals_kernel_size))
+        elif mode == "voxel_local_map":
+            self._vox_cfg = dataclass_from_dict(vm.VoxelTableMapConfig, lm_dict)
+            self.local_map_size = int(self._vox_cfg.local_map_size)
+            self._step, self._first, self._batch_step = vm.make_voxel_icp_frame_step(
+                proj=projector,
+                map_cfg=self._vox_cfg,
+                reassoc_every=int(config.reassoc_every or 1),
+                reassoc_motion_m=float(config.reassoc_motion_m or 0.0),
+                max_num_alignments=int(config.max_num_alignments),
+                threshold_delta_pose=float(config.threshold_delta_pose),
+                threshold_trans=float(config.threshold_trans),
+                threshold_rot=float(config.threshold_rot),
+                gn_scheme=gn_cfg.scheme,
+                gn_sigma=float(gn_cfg.sigma),
+                gn_eps=float(gn_cfg.eps),
+                upload_quantization=float(config.upload_quantization or 0.0))
+        elif mode == "kdtree_local_map":
             self._surfel_cfg = dataclass_from_dict(sm.SurfelRingMapConfig, lm_dict)
             self.local_map_size = int(self._surfel_cfg.local_map_size)
             self._step, self._first, self._batch_step = \
@@ -235,7 +374,13 @@ class ICPFrameToModel:
     # -- lifecycle ----------------------------------------------------------
 
     def init(self):
-        if self._mode == "kdtree_local_map":
+        h, w = self.projector.height, self.projector.width
+        if self._mode == "projective_local_map":
+            self._map_state = lm.init_projective_map(self.local_map_size, h, w,
+                                                     self.device)
+        elif self._mode == "voxel_local_map":
+            self._map_state = vm.init_voxel_map(self._vox_cfg, self.device)
+        elif self._mode == "kdtree_local_map":
             cfg = self._surfel_cfg
             use_hash = str(cfg.nn_backend) == "hash"
             self._map_state = sm.init_surfel_map(
@@ -243,13 +388,14 @@ class ICPFrameToModel:
                 hash_buckets=int(cfg.hash_buckets) if use_hash else 0,
                 hash_capacity=int(cfg.hash_capacity) if use_hash else 0)
         else:
-            h, w = self.projector.height, self.projector.width
             self._map_state = am.init_agg_map(h, w, self.device)
         self._delta_since_update = torch.eye(4, dtype=torch.float32,
                                              device=self.device)
         # Device-side pose log: (k, 6) params per flush, fetched once.
         self._params_log: list = []
-        self._frame_buffer: list = []  # batched mode: host upload buffers
+        # batched mode: host upload buffers, or (points, mask) device pairs
+        # of vertex-map inputs
+        self._frame_buffer: list = []
         self._pending_params: list = []  # ([host params], event or None)
         self._pending_rposes: list = []
         self._iter = 0
@@ -364,23 +510,61 @@ class ICPFrameToModel:
         return torch.ones(lead + (self.config.num_points_padded,),
                           dtype=torch.bool, device=self.device)
 
+    def _vertex_map(self, data):
+        """An (H, W, 3) / (3, H, W) vertex-map input as a channels-last
+        float32 array (numpy or tensor, NaNs zeroed); None for a cloud."""
+        if data.ndim != 3:
+            return None
+        if data.shape[0] == 3 and data.shape[-1] != 3:
+            data = data.permute(1, 2, 0) if isinstance(data, torch.Tensor) \
+                else np.transpose(data, (1, 2, 0))
+        assert_debug(tuple(data.shape) == (self.projector.height, self.projector.width, 3),
+                     f"vertex map of shape {tuple(data.shape)} does not fit the "
+                     f"{self.projector.height}x{self.projector.width} projector")
+        if isinstance(data, torch.Tensor):
+            return torch.nan_to_num(data.to(torch.float32))
+        return np.nan_to_num(np.asarray(data, np.float32))
+
     def _input_cloud(self, data) -> np.ndarray:
-        """The frame's (N, 3+) host point cloud."""
+        """The frame's (N, 3+) host point cloud; a vertex map's pixels in
+        row-major order."""
+        vmap = self._vertex_map(data)
+        if vmap is not None:
+            data = vmap.reshape(-1, 3)
         arr = data.cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
-        if arr.ndim != 2 or arr.shape[1] < 3:
-            raise NotImplementedError(
-                f"input of shape {arr.shape}: only (N, 3+) point clouds are "
-                f"ported; vertex-map inputs are ROADMAP.md A.13")
+        assert_debug(arr.ndim == 2 and arr.shape[1] >= 3,
+                     f"Cannot interpret data under '{self.config.data_key}' "
+                     f"with shape {arr.shape}")
         return arr
 
-    def _read_points(self, data_dict: dict):
-        """Reads the input as a padded (N, 3) device cloud + validity mask."""
+    def _input(self, data_dict: dict):
         key = self.config.data_key
         assert_debug(key in data_dict,
                      f"Could not find the key `{key}` in the input dictionary "
                      f"(keys: {list(data_dict.keys())}).")
-        buf = self._compact_host_buffer(self._input_cloud(data_dict[key]))
+        return data_dict[key]
+
+    def _read_points(self, data_dict: dict):
+        """Reads the input as a device cloud + validity mask: a vertex map's
+        H*W pixels as they are, a cloud padded to capacity."""
+        data = self._input(data_dict)
+        vmap = self._vertex_map(data)
+        if vmap is not None:
+            pts = torch.as_tensor(vmap, device=self.device).reshape(-1, 3)
+            return pts, torch.amax(torch.abs(pts), dim=-1) > 0
+        buf = self._compact_host_buffer(self._input_cloud(data))
         return self._upload(buf[None])[0], self._ones_mask()
+
+    def _read_input(self, data_dict: dict) -> torch.Tensor:
+        """The projective map's (H, W, 3) device vertex map: a vertex-map
+        input as it is, a cloud rasterized on the device (uploaded as the
+        f32 upload of the other maps: NaN rows dropped, thinned by a stride
+        past capacity)."""
+        data = self._input(data_dict)
+        vmap = self._vertex_map(data)
+        if vmap is not None:
+            return torch.as_tensor(vmap, device=self.device)
+        return self._build_vmap(*self._read_points(data_dict))
 
     @staticmethod
     def pointcloud_key() -> str:
@@ -393,30 +577,18 @@ class ICPFrameToModel:
     # -- main ---------------------------------------------------------------
 
     def process_next_frame(self, data_dict: dict):
+        if self._mode == "projective_local_map":
+            # one frame per step: the projective map ignores batch_size
+            return self._process_projective(data_dict)
         if int(self.config.batch_size or 1) > 1 and self._iter > 0:
             return self._buffer_frame(data_dict)
 
         points, mask = self._read_points(data_dict)
         if self._iter == 0:
             self._map_state = self._first(self._map_state, points, mask)
-            self.last_rpose_device = torch.eye(4, dtype=torch.float32,
-                                               device=self.device)
-            self._params_log.append(torch.zeros((1, 6), dtype=torch.float32,
-                                                device=self.device))
-            self._iter += 1
-            data_dict[self.relative_pose_key()] = self.last_rpose_device
-            if bool(self.config.ei_bootstrap):
-                self._boot_cloud = self._boot_cloud_of(data_dict)
-            return
+            return self._started(data_dict)
 
-        # The caller's prior (e.g. the previous frame's pose, still on the
-        # device) is used as it is: no host round trip per frame.
-        init = data_dict.get("init_rpose", None)
-        init_pose = torch.eye(4, dtype=torch.float32, device=self.device) \
-            if init is None else torch.as_tensor(init, dtype=torch.float32,
-                                                 device=self.device)
-        init_pose = self._maybe_bootstrap(data_dict, init_pose)
-
+        init_pose = self._maybe_bootstrap(data_dict, self._init_pose(data_dict))
         (self._map_state, self._delta_since_update, rpose, pose_params,
          _diag) = self._step(self._map_state, self._delta_since_update,
                              points, mask, init_pose)
@@ -427,17 +599,58 @@ class ICPFrameToModel:
             self._input_cloud(data_dict[self.config.data_key])[:, :3]
         self._iter += 1
 
+    def _started(self, data_dict: dict):
+        """Frame 0 is in the map: identity pose, and its cloud kept for the
+        frame-1 EI bootstrap."""
+        self.last_rpose_device = torch.eye(4, dtype=torch.float32, device=self.device)
+        self._params_log.append(torch.zeros((1, 6), dtype=torch.float32,
+                                            device=self.device))
+        self._iter += 1
+        data_dict[self.relative_pose_key()] = self.last_rpose_device
+        if bool(self.config.ei_bootstrap):
+            self._boot_cloud = self._boot_cloud_of(data_dict)
+
+    def _init_pose(self, data_dict: dict) -> torch.Tensor:
+        """The caller's prior (e.g. the previous frame's pose, still on the
+        device), used as it is: no host round trip per frame."""
+        init = data_dict.get("init_rpose", None)
+        if init is None:
+            return torch.eye(4, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(init, dtype=torch.float32, device=self.device)
+
+    def _process_projective(self, data_dict: dict):
+        """The projective map's frame: the vertex map goes through the step
+        and on to downstream consumers as ``odometry_pc``."""
+        vmap = self._read_input(data_dict)
+        if self._iter == 0:
+            self._map_state = self._first(self._map_state, vmap)
+            return self._started(data_dict)
+        init_pose = self._maybe_bootstrap(data_dict, self._init_pose(data_dict))
+        self._map_state, self._delta_since_update, result = self._step(
+            self._map_state, self._delta_since_update, vmap, init_pose)
+        self.last_rpose_device = result.pose_matrix
+        self._params_log.append(result.pose_params[None])
+        data_dict[self.relative_pose_key()] = result.pose_matrix
+        data_dict[self.pointcloud_key()] = vmap
+        self._iter += 1
+
     def _buffer_frame(self, data_dict: dict):
         """Batched path: keeps the frame as a host upload buffer; the whole
-        batch crosses to the device as one stacked copy at flush."""
-        arr = self._input_cloud(data_dict[self.config.data_key])
-        # A prefetch worker may already have run encode_upload() off this
-        # thread.
-        entry = data_dict.get("encoded_upload")
-        if entry is None:
-            entry = self._compact_host_buffer(arr)
-        # Downstream consumers need METERS, not an encoded buffer.
-        pc_out = entry if entry.dtype == np.float32 else arr[:, :3]
+        batch crosses to the device as one stacked copy at flush.  A
+        vertex-map input is buffered as its device (points, mask)."""
+        data = self._input(data_dict)
+        arr = self._input_cloud(data)
+        if data.ndim == 3:  # a vertex map
+            entry = self._read_points(data_dict)
+            pc_out = arr[:, :3]
+        else:
+            # A prefetch worker may already have run encode_upload() off
+            # this thread.
+            entry = data_dict.get("encoded_upload")
+            if entry is None:
+                entry = self._compact_host_buffer(arr)
+            # Downstream consumers need METERS, not an encoded buffer.
+            pc_out = entry if entry.dtype == np.float32 else arr[:, :3]
         if self._iter == 1 and bool(self.config.ei_bootstrap) and \
                 self._boot_cloud is not None:
             # The CV chain starts from last_rpose_device (identity after
@@ -465,8 +678,12 @@ class ICPFrameToModel:
             return
         bufs = self._frame_buffer
         self._frame_buffer = []
-        pts = self._upload(self._stack(bufs))
-        msks = self._ones_mask(len(bufs))
+        if isinstance(bufs[0], tuple):  # vertex-map inputs, on the device
+            pts = torch.stack([p for p, _ in bufs])
+            msks = torch.stack([m for _, m in bufs])
+        else:
+            pts = self._upload(self._stack(bufs))
+            msks = self._ones_mask(len(bufs))
         (self._map_state, self._delta_since_update, self.last_rpose_device,
          params, _diags) = self._batch_step(
             self._map_state, self._delta_since_update,
@@ -480,7 +697,8 @@ class ICPFrameToModel:
         # the flushed batches' poses come first in the pose stream
         self._collect_params(wait=True)
         for buf in self._frame_buffer:
-            points, mask = self._upload(buf[None])[0], self._ones_mask()
+            points, mask = buf if isinstance(buf, tuple) else \
+                (self._upload(buf[None])[0], self._ones_mask())
             (self._map_state, self._delta_since_update, rpose, pose_params,
              _diag) = self._step(self._map_state, self._delta_since_update,
                                  points, mask, self.last_rpose_device)

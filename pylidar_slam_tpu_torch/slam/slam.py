@@ -163,7 +163,8 @@ class SLAM:
                 and getattr(odom, "encode_upload", None) is not None
                 and int(getattr(odom.config, "batch_size", 1) or 1) > 1
                 and getattr(odom, "_mode", "") in ("aggregated_local_map",
-                                                   "kdtree_local_map")):
+                                                   "kdtree_local_map",
+                                                   "voxel_local_map")):
             data_dict["encoded_upload"] = odom.encode_upload(arr)
         if arr is not None and self.loop_closure is not None and \
                 hasattr(self.loop_closure, "_subsample"):

@@ -9,6 +9,8 @@ the ICP transform 1e-4; the float64 host solver 1e-9; the float32 PCG 1e-4
 constraint keys identical, their transforms within 1e-3 m and 1e-3 of each
 rotation entry.
 """
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -29,6 +31,7 @@ from test_backend import _circle_poses
 from test_loop_closure import _structured_cloud
 
 BEV_TOL = 1e-4
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -347,3 +350,109 @@ def test_loop_closure_state_resume(revisit_runs, world, tmp_path):
     more, _ = _drive(lc_b, world, cut, N_FRAMES, prev_pose)
     resumed.update(_finish(lc_b, more))
     assert sorted(resumed) == sorted(full)
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP.md §C1: the loops the port accepted and the JAX package rejected
+# ---------------------------------------------------------------------------
+
+C1_FRAMES = 20
+C1_OVERRIDES = ["dataset=synthetic", f"dataset.num_frames={C1_FRAMES}",
+                "dataset.turn_rate=0.01", "slam/odometry/local_map=aggregated",
+                "slam.odometry.max_num_alignments=6",
+                "slam.odometry.num_points_padded=65536", "slam.odometry.batch_size=1",
+                "slam/loop_closure=elevation_image", "slam.loop_closure.local_map_size=4",
+                "slam.loop_closure.overlap=1", "slam.loop_closure.min_id_distance=9",
+                "slam.loop_closure.max_distance=1e6", "slam/backend=graph_slam"]
+
+
+def _jax_slam_events(monkeypatch, perturbation):
+    """The JAX package's SLAM on the configuration of
+    tests/test_slam_e2e.py's mid-sequence loop-closure test (64x1024, f32
+    uploads, every earlier submap a candidate), cut to 20 frames, with each
+    input cloud scaled by (1 + perturbation * N(0, 1)).  Returns (the loop
+    pairs it accepts, each submap event's inputs and match results)."""
+    from pylidar_slam_tpu.config import compose, dataclass_from_dict
+    from pylidar_slam_tpu.dataset.synthetic import SyntheticConfig, SyntheticDatasetLoader
+    from pylidar_slam_tpu.slam import loop_closure as jlc_mod
+    from pylidar_slam_tpu.slam.slam import SLAM, SLAMConfig
+
+    events, images = [], []
+    match = jlc_mod.ElevationImageLoopClosure._match_candidates
+    build = jlc_mod.ElevationImageLoopClosure._build_image
+
+    def record_image(self, aggregated):
+        image = build(self, aggregated)
+        images.append((np.array(aggregated), np.asarray(image)))
+        return image
+
+    def record(self, candidate_ids, image, submap_cloud, frame_id):
+        match(self, candidate_ids, image, submap_cloud, frame_id)
+        scores, transforms, ids, _ = self._pending_matches[-1]
+        pad = ids + [ids[0]] * (int(self.config.max_num_candidates) - len(ids))
+        events.append({
+            "n": len(ids), "image": np.asarray(image),
+            "sm_cloud": np.asarray(submap_cloud[0]), "sm_mask": np.asarray(submap_cloud[1]),
+            "scores": np.asarray(scores), "transforms": np.asarray(transforms),
+            "cand_imgs": np.stack([np.asarray(self.saved_images[k]) for k in pad]),
+            "cand_clouds": np.stack([np.asarray(self.saved_clouds[k][0]) for k in pad]),
+            "cand_masks": np.stack([np.asarray(self.saved_clouds[k][1]) for k in pad])})
+
+    monkeypatch.setattr(jlc_mod.ElevationImageLoopClosure, "_match_candidates", record)
+    monkeypatch.setattr(jlc_mod.ElevationImageLoopClosure, "_build_image", record_image)
+    monkeypatch.chdir(ROOT)
+    cfg = compose("config", "slam", C1_OVERRIDES)
+    loader = SyntheticDatasetLoader(dataclass_from_dict(SyntheticConfig, cfg["dataset"]))
+    rng = np.random.default_rng(7)
+    with jax.enable_x64(False):
+        slam = SLAM(dataclass_from_dict(SLAMConfig, cfg["slam"]), projector=loader.projector())
+        slam.init()
+        ds = loader.sequences()[0][0][0]
+        for i in range(C1_FRAMES):
+            frame = dict(ds[i])
+            pc = frame["numpy_pc"]
+            frame["numpy_pc"] = (pc * (1 + perturbation * rng.standard_normal(pc.shape))
+                                 ).astype(np.float32)
+            slam.process_next_frame(frame)
+        slam.finish()
+    monkeypatch.undo()
+    return ([(i, j) for i, j, *_ in slam.backend.registered_loop_constraints()],
+            events, images)
+
+
+def test_c1_loop_decisions_match_jax_on_identical_submaps(monkeypatch):
+    """C1's cause lies in the reference: on identical submap inputs the
+    port's BEV image, candidate scores, refined transforms and accept
+    decisions are the JAX package's, while a 1e-7 relative change of the
+    input clouds moves the JAX package's own score of the frame-3
+    candidate at the frame-18 event from 0.114 to 0.085, across
+    `min_score` 0.10, so its own loop set changes.  Non-overlapping
+    candidates score 0.04-0.12 here; which of them pass depends on the
+    last bits of the odometry, in either package."""
+    loops, events, images = _jax_slam_events(monkeypatch, 0.0)
+    loops_p, events_p, _ = _jax_slam_events(monkeypatch, 1e-7)
+    assert loops == [(3, 18)] and loops_p == []
+    assert len(events) == len(events_p) == 2
+    flips = [(e["scores"][:e["n"]] >= 0.1) != (p["scores"][:p["n"]] >= 0.1)
+             for e, p in zip(events, events_p)]
+    assert any(f.any() for f in flips)
+
+    cfg = TLCConfig(local_map_size=4, overlap=1, min_id_distance=9, max_distance=1e6)
+    tlc = TLC(cfg, device="cpu")
+    tlc.init()
+    assert len(images) >= 5
+    for aggregated, image in images:
+        np.testing.assert_allclose(tlc._build_image(aggregated).numpy(), image,
+                                   rtol=0, atol=1e-6)
+    for e in events:
+        n = e["n"]
+        scores, transforms, _ = tlc._match_batch(
+            *[torch.from_numpy(e[k]) for k in ("cand_imgs", "cand_clouds", "cand_masks",
+                                               "image", "sm_cloud", "sm_mask")])
+        scores = scores.numpy()[:n]
+        np.testing.assert_allclose(scores, e["scores"][:n], rtol=0, atol=1e-5)
+        accepted = e["scores"][:n] >= cfg.min_score
+        assert np.array_equal(scores >= cfg.min_score, accepted)
+        assert np.min(np.abs(e["scores"][:n] - cfg.min_score)) > 1e-4  # decisions not on a tie
+        np.testing.assert_allclose(transforms.numpy()[:n][accepted],
+                                   e["transforms"][:n][accepted], rtol=0, atol=1e-4)

@@ -85,7 +85,7 @@ def test_per_frame_path_matches_jax(frames, upload_format):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(local_map={"type": "voxel_local_map"}), "A.11"),
+    (dict(viz_debug=True), "A.19"),
     (dict(upload_format="rimg16"), "leaves out"),
     (dict(upload_quantization=0.01), "leaves out"),
     (dict(shard_points=2), "A.13"),
@@ -118,9 +118,11 @@ def test_former_a5b_branches_step_like_jax(over):
 
 
 def test_vertex_map_input_raises(frames):
+    """Vertex-map inputs run on every map (tests/test_torch_projective.py);
+    one that does not fit the projector raises."""
     t = TICP(_configs()[0], projector=TLoader(TCfg(**SEQ)).projector())
-    vmap = np.zeros((3, H, W), np.float32)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    vmap = np.zeros((3, H // 2, W), np.float32)
+    with pytest.raises(AssertionError, match="does not fit"):
         t.process_next_frame({"numpy_pc": vmap})
 
 
