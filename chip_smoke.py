@@ -77,7 +77,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    at most the JAX package's CPU figure + 0.1 pt, scans/s; one step under
    sync-debug "error" and under the profiler; neither kernel is on the
    projective or the voxel path, and both phases check that neither ran;
-14. times: each kernel's device time per call (N calls captured in a CUDA
+14. posenet: the deep-learning track at 64x1024 on 40 synthetic frames
+   loaded once: ``python -m pylidar_slam_tpu_torch.train dataset=synthetic
+   dataset.num_frames=40 num_epochs=8 batch_size=8`` (supervised
+   PoseResNet-18 from the port's own initialisation, no device override),
+   then the deep odometry from its checkpoint over the 40 frames, whose
+   trajectory ATE must beat the identity trajectory's by 3x (the JAX
+   package's CPU figure, ``scripts/jax_cpu_posenet_bar.py``, printed
+   beside it); the same recipe twice more in this process, on the frames
+   loaded once, to say whether two runs give bit-identical weights; 20
+   unsupervised steps at batch 4 with every loss finite; through the CLI
+   (``TRAIN_DIR`` set to that checkpoint) ``slam/odometry=deep_odometry``,
+   whose metrics.yaml ATE must beat the identity's by 3x, and
+   ``slam/initialization=PoseNet`` with the default surfel odometry, ATE
+   < 0.05 m, the CV-initialized run's ATE beside it; one train step (batch
+   4 and 8) and one deep-odometry frame under
+   ``torch.cuda.set_sync_debug_mode("error")``, then three of each under
+   ``torch.profiler`` and a wall clock, beside the step's bound (its
+   convolutions' FLOPs at 67 TFLOP/s); no B1 or B2 launch;
+15. times: each kernel's device time per call (N calls captured in a CUDA
    graph, replayed under CUDA events), its wall time per call (back-to-back
    calls under CUDA events, which for B1 is the host's enqueue), its plain
    version's, B2's library yardstick (``torch.cdist`` + min) and each
@@ -105,6 +123,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -195,6 +214,18 @@ CLI_TR_ERR, CLI_ATE_M = 0.01, 0.05
 PROJECTIVE_OVERRIDES = CLI_OVERRIDES + ["slam/odometry/local_map=projective"]
 JAX_CPU_TR_ERR = {"projective": 0.0010508689764278157, "voxel": 0.00048665772964472185}
 MAP_ATE_M = 0.05
+# The deep track: the JAX package's learning pin (tests/test_training.py:43-89,
+# supervised, 8 epochs at batch 8 over 40 frames; deep odometry must beat the
+# identity trajectory's ATE by 3x) at 64x1024 with 131,072 padded points.
+# scripts/jax_cpu_posenet_bar.py gave these on the CPU at that size (7.03x).
+POSENET_FRAMES = 40
+POSENET_TRAIN = ["dataset=synthetic", f"dataset.num_frames={POSENET_FRAMES}", "num_epochs=8",
+                 "batch_size=8"]
+POSENET_RATIO = 3.0
+JAX_CPU_POSENET = {"ate_m": 3.0491583206568817, "identity_ate_m": 21.433189234495064,
+                   "relative_ate_m": 0.11415313096692876,
+                   "identity_relative_ate_m": 1.0725000000000002}
+UNSUPERVISED_STEPS = 20
 
 
 def log(msg: str):
@@ -865,6 +896,274 @@ def voxel_phase(loader, frames, dev, card) -> dict:
     return out
 
 
+def _cli(name, module, argv, env=None) -> tuple:
+    """`python -m module argv` in a process of its own, with no device
+    override; fails unless it ran on the card.  Returns (stderr, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900, env=env)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name} failed:\n{proc.stderr[-4000:]}")
+    if "on cuda" not in proc.stderr:
+        raise AssertionError(f"{name} did not run on the card")
+    return proc.stderr, seconds
+
+
+def _posenet_trainer(overrides, train_dir, frames=None):
+    """The port's trainer as ``python -m pylidar_slam_tpu_torch.train``
+    builds it; with `frames`, its dataset is those frames, loaded once."""
+    from pylidar_slam_tpu_torch.train import build_trainer
+    shutil.rmtree(train_dir, ignore_errors=True)
+    trainer = build_trainer(compose(str(ROOT / "config"), "train_posenet",
+                                    overrides + [f"train_dir={train_dir}"]))
+    if frames is not None:
+        seqs = ([frames], ["synth_00"])
+        trainer.dataset_loader.sequences = lambda: (seqs, seqs, seqs, lambda x: x)
+    return trainer
+
+
+def deep_odometry_run(train_dir, frames, dev) -> dict:
+    """The deep odometry from `train_dir` over the frames: the trajectory
+    ATE (the JAX pin's metric) against the identity trajectory's, the
+    per-frame relative ATE (a SLAM run's metrics.yaml ATE) and frames/s."""
+    from pylidar_slam_tpu_torch.slam.odometry.posenet_odometry import (PoseNetOdometry,
+                                                                       PoseNetOdometryConfig)
+    odom = PoseNetOdometry(PoseNetOdometryConfig(train_dir=str(train_dir)), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames:
+        odom.process_next_frame({"numpy_pc": f["numpy_pc"]})
+    rel = odom.get_relative_poses().astype(np.float64)
+    seconds = time.perf_counter() - t0
+    gt = np.stack([np.asarray(f["absolute_pose_gt"], np.float64) for f in frames])
+    gt = np.linalg.inv(gt[0]) @ gt
+    if rel.shape != gt.shape or not np.all(np.isfinite(rel)):
+        raise AssertionError("deep odometry: the relative poses are not finite")
+    traj = ev.compute_absolute_poses(rel)
+    identity = np.broadcast_to(np.eye(4), gt.shape)
+    gt_rel = ev.compute_relative_poses(gt)
+
+    def ate(t):
+        return float(np.linalg.norm(t[:, :3, 3] - gt[:, :3, 3], axis=1).mean())
+
+    return {"ate_m": ate(traj), "identity_ate_m": ate(identity),
+            "relative_ate_m": ev.compute_ate(rel, gt_rel)[0],
+            "identity_relative_ate_m": ev.compute_ate(np.array(identity), gt_rel)[0],
+            "frames_per_s": len(frames) / seconds, "odometry": odom}
+
+
+def conv_flops(module, vmaps) -> tuple:
+    """(forward FLOPs of every convolution, of the stem alone) of one
+    forward over `vmaps`: 2 * Cin * kh * kw per output element."""
+    counts = []
+
+    def hook(conv, _, out):
+        k = conv.weight
+        counts.append(2 * out.numel() * k.shape[1] * k.shape[2] * k.shape[3])
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    was_training = module.training
+    module.eval()
+    with torch.no_grad():
+        module(vmaps)
+    module.train(was_training)
+    for h in handles:
+        h.remove()
+    return sum(counts), counts[0]
+
+
+def _sync_checked(name, fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[sync] {name}: one call under set_sync_debug_mode('error'), no host sync")
+    return out
+
+
+def _profile_calls(name, fn, flops, card, calls=3) -> dict:
+    """Kernels and device ms per call (torch.profiler), wall ms per call
+    (back-to-back calls ending in a sync), the idle share and the bound:
+    `flops` float32 operations at 67 TFLOP/s."""
+    kernels, device_ms = _device_kernels(fn, calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    bound_ms = flops / PEAK_F32_FLOPS * 1e3
+    idle = None if device_ms is None else 1.0 - device_ms / wall_ms
+    log(f"[posenet] {card}: {name}: {kernels} kernels per call, device {device_ms} ms, wall "
+        f"{wall_ms:.2f} ms, device idle share {idle}; bound {bound_ms:.3f} ms ({flops} conv "
+        f"FLOP at 67 TFLOP/s), {bound_ms / device_ms if device_ms else None} of the device time")
+    return {"kernels": kernels, "device_ms": device_ms, "wall_ms": wall_ms, "idle_share": idle,
+            "conv_flops": flops, "bound_ms": bound_ms}
+
+
+def train_step_profile(trainer, frames, batch, card) -> dict:
+    """One train step of `trainer` at `batch` under sync-debug "error",
+    then three under the profiler and the wall clock."""
+    batches = trainer._batches([frames], batch, True, np.random.default_rng(1))
+    host = next(batches)
+    batches.close()
+    points, masks, gt = trainer._upload(*host)
+
+    def step():
+        return trainer._train_step(points, masks, gt)
+    loss, _ = _sync_checked(f"posenet train step, batch {batch}", step)
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"posenet batch {batch}: the checked step's loss is not finite")
+    vmaps = projection.build_vertex_map(points, trainer.proj, mask=masks).permute(0, 1, 4, 2, 3)
+    fwd, stem = conv_flops(trainer.module, vmaps)
+    # backward: the gradients of every conv's weights and inputs, but the
+    # stem's input (the vertex maps) needs none
+    out = _profile_calls(f"train step, batch {batch}", step, 3 * fwd - stem, card)
+    out.update(batch=batch, steps_per_s=1e3 / out["wall_ms"],
+               samples_per_s=batch * 1e3 / out["wall_ms"])
+    log(f"[posenet] {card}: batch {batch}: {out['steps_per_s']:.2f} train steps/s, "
+        f"{out['samples_per_s']:.2f} samples/s")
+    return out
+
+
+def posenet_phase(dev, card) -> dict:
+    """The deep-learning track: training through the port's CLI, the deep
+    odometry and the PoseNet initialization, repeatability, unsupervised
+    steps and the step's profile."""
+    b1.assoc_gn.launches = 0
+    b2.nn_argmin.launches = 0
+    out = {}
+    _, frames = load_frames(dict(lidar_height=64, lidar_width=1024, num_frames=POSENET_FRAMES))
+    jax_ratio = JAX_CPU_POSENET["identity_ate_m"] / JAX_CPU_POSENET["ate_m"]
+
+    # 1. the learning check, through the CLI
+    train_dir = ROOT / "build" / "chip_posenet"
+    shutil.rmtree(train_dir, ignore_errors=True)
+    argv = POSENET_TRAIN + [f"train_dir={train_dir}", "num_workers=8"]
+    stderr, seconds = _cli("the posenet training CLI", "pylidar_slam_tpu_torch.train", argv)
+    losses = re.findall(r"epoch (\d+) (train|eval) loss ([0-9.eE+-]+|nan|inf)", stderr)
+    run = deep_odometry_run(train_dir, frames, dev)
+    odom = run.pop("odometry")
+    out["learning"] = {"argv": argv, "seconds": seconds, "epoch_losses": losses, **run}
+    log(f"[posenet] {card}: python -m pylidar_slam_tpu_torch.train {' '.join(argv)}: "
+        f"{seconds:.1f} s in all; deep odometry over the {POSENET_FRAMES} frames: ATE "
+        f"{run['ate_m']:.4f} m against the identity's {run['identity_ate_m']:.4f} m "
+        f"({run['identity_ate_m'] / run['ate_m']:.2f}x; bar {POSENET_RATIO:.0f}x); the JAX "
+        f"package on the CPU: {JAX_CPU_POSENET['ate_m']:.4f} m against "
+        f"{JAX_CPU_POSENET['identity_ate_m']:.4f} m ({jax_ratio:.2f}x); relative ATE "
+        f"{run['relative_ate_m']:.4f} m (JAX CPU {JAX_CPU_POSENET['relative_ate_m']:.4f}); "
+        f"{run['frames_per_s']:.2f} frames/s; epoch losses {losses}")
+    if not run["ate_m"] < run["identity_ate_m"] / POSENET_RATIO:
+        raise AssertionError(f"posenet: ATE {run['ate_m']} m does not beat the identity's "
+                             f"{run['identity_ate_m']} m by {POSENET_RATIO}x")
+
+    # 5. repeatability: the same recipe twice more in this process, on the
+    # frames loaded once
+    first = torch.load(train_dir / "checkpoint.ckp", map_location=dev, weights_only=True)["model"]
+    runs = []
+    for i in range(2):
+        trainer = _posenet_trainer(POSENET_TRAIN, ROOT / "build" / f"chip_posenet_again{i}",
+                                   frames)
+        trainer.init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        runs.append((trainer, time.perf_counter() - t0))
+
+    def max_diff(a: dict, b: dict) -> float:
+        return max(float((v.float() - b[k].float()).abs().max()) for k, v in a.items())
+    states = [t.module.state_dict() for t, _ in runs]
+    in_process, vs_cli = max_diff(states[0], states[1]), max_diff(states[0], first)
+    again = runs[0][0]
+    run2 = deep_odometry_run(again.train_dir, frames, dev)
+    run2.pop("odometry")
+    out["repeat"] = {"seconds": [s for _, s in runs], "train_steps": again.train_iter,
+                     "max_weight_diff_in_process": in_process, "max_weight_diff_vs_cli": vs_cli,
+                     "bit_identical_in_process": in_process == 0.0, **run2}
+    log(f"[posenet] {card}: the same recipe twice in this process on the frames loaded once: "
+        f"{again.train_iter} steps and {POSENET_FRAMES - 1} eval windows per epoch in "
+        f"{[round(s, 2) for _, s in runs]} s; the two runs' weights bit-identical: "
+        f"{in_process == 0.0} (max difference {in_process:.3e}; against the CLI run's "
+        f"{vs_cli:.3e}); the first one's ATE {run2['ate_m']:.4f} m "
+        f"({run2['identity_ate_m'] / run2['ate_m']:.2f}x)")
+    if not run2["ate_m"] < run2["identity_ate_m"] / POSENET_RATIO:
+        raise AssertionError(f"posenet repeat: ATE {run2['ate_m']} m")
+
+    # 2. unsupervised steps
+    unsup = _posenet_trainer(POSENET_TRAIN + ["training/loss=unsupervised", "batch_size=4"],
+                             ROOT / "build" / "chip_posenet_unsup", frames)
+    unsup.init()
+    step_losses, epoch = [], 0
+    while len(step_losses) < UNSUPERVISED_STEPS:
+        for batch in unsup._batches([frames], 4, True, np.random.default_rng(epoch)):
+            step_losses.append(unsup._train_step(*unsup._upload(*batch))[0])
+            if len(step_losses) == UNSUPERVISED_STEPS:
+                break
+        epoch += 1
+    unsup_losses = torch.stack(step_losses).cpu().numpy().tolist()
+    out["unsupervised"] = {"steps": len(unsup_losses), "losses": unsup_losses}
+    log(f"[posenet] {card}: {len(unsup_losses)} unsupervised steps at batch 4: losses "
+        f"{[round(x, 5) for x in unsup_losses]}")
+    if not np.all(np.isfinite(unsup_losses)):
+        raise AssertionError(f"posenet unsupervised: non-finite losses {unsup_losses}")
+
+    # 3. through the SLAM CLI
+    env = dict(os.environ, TRAIN_DIR=str(train_dir))
+    base = ["dataset=synthetic", f"dataset.num_frames={POSENET_FRAMES}", "num_workers=8"]
+    identity_rel = run["identity_relative_ate_m"]
+    cli = {}
+    for name, extra in (("deep_odometry", ["slam/odometry=deep_odometry"]),
+                        ("posenet_init", ["slam/initialization=PoseNet"]),
+                        ("cv_init", [])):
+        log_dir = ROOT / "build" / f"chip_{name}"
+        stderr, seconds = _cli(f"the {name} CLI run", "pylidar_slam_tpu_torch.run",
+                               base + extra + [f"log_dir={log_dir}"], env)
+        m = load_yaml_file(log_dir / "metrics.yaml")["synth_00"]
+        rate = next((line for line in stderr.splitlines() if "scans/s" in line), "")
+        cli[name] = {"argv": base + extra, "seconds": seconds, "metrics": m, "rate_line": rate}
+        log(f"[posenet] {card}: python -m pylidar_slam_tpu_torch.run "
+            f"{' '.join(base + extra)}: ATE {m['ATE']:.5f} m; {rate.split(': ', 1)[-1]}")
+    deep_ate, pn_ate = cli["deep_odometry"]["metrics"]["ATE"], cli["posenet_init"]["metrics"]["ATE"]
+    log(f"[posenet] {card}: bars: deep odometry ATE {deep_ate:.5f} m < the identity's "
+        f"{identity_rel:.5f} m / {POSENET_RATIO:.0f} (JAX CPU "
+        f"{JAX_CPU_POSENET['relative_ate_m']:.5f} m); PoseNet-initialized surfel ATE "
+        f"{pn_ate:.5f} m < {CLI_ATE_M} m (CV-initialized "
+        f"{cli['cv_init']['metrics']['ATE']:.5f} m)")
+    if not deep_ate < identity_rel / POSENET_RATIO:
+        raise AssertionError(f"posenet CLI deep odometry: ATE {deep_ate} m")
+    if not pn_ate < CLI_ATE_M:
+        raise AssertionError(f"posenet CLI PoseNet initialization: ATE {pn_ate} m")
+    out["cli"] = cli
+
+    # 4. a train step at batch 4 and 8 and a deep-odometry frame: no host
+    # sync, then the profile
+    batch4 = _posenet_trainer(POSENET_TRAIN + ["batch_size=4"],
+                              ROOT / "build" / "chip_posenet_b4", frames)
+    batch4.init()
+    out["train_step"] = {f"batch{b}": train_step_profile(t, frames, b, card)
+                         for b, t in ((4, batch4), (8, again))}
+    inf = odom.inference
+    prev, cur = inf.upload(frames[-2]["numpy_pc"]), inf.upload(frames[-1]["numpy_pc"])
+
+    def frame():
+        return inf(*prev, *cur)
+    params, _ = _sync_checked("posenet deep-odometry frame", frame)
+    if not bool(torch.isfinite(params).all()):
+        raise AssertionError("posenet: the checked frame's pose is not finite")
+    vmaps = projection.build_vertex_map(torch.stack([prev[0], cur[0]]), inf.proj,
+                                        mask=torch.stack([prev[1], cur[1]]))
+    fwd, _ = conv_flops(inf.prediction.module, vmaps.permute(0, 3, 1, 2)[None])
+    out["odometry_frame"] = _profile_calls("deep-odometry frame", frame, fwd, card)
+    out["odometry_frame"]["frames_per_s_sequence"] = run["frames_per_s"]
+    _no_kernel_launches("posenet")
+    return out
+
+
 def b2_inputs(odom, next_frame):
     """The surfel map after the main path, and the next frame's grid-sampled
     targets moved to their prior in the map's anchor frame -- what the
@@ -1179,6 +1478,8 @@ def main() -> int:
                         help="another checkout of the package (e.g. an earlier commit "
                              "unpacked by git archive) whose kernels are timed against "
                              "this one's; repeatable")
+    parser.add_argument("--only", choices=["posenet"],
+                        help="build, then run this phase alone (a probe: no result line)")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1195,6 +1496,12 @@ def main() -> int:
         return out
 
     build = phase("build", build_phase)
+    if args.only:
+        result = phase(args.only, {"posenet": posenet_phase}[args.only], dev, card)
+        (ROOT / "build" / f"chip_smoke_{args.only}.json").write_text(json.dumps(
+            {"card": card, args.only: result, "seconds": seconds}, indent=1, default=str))
+        log(f"[{args.only}] {card}: probe passed (no result line: the full run prints it)")
+        return 0
     loader, frames, next_frame = phase("setup", load_sequence)
     b1_in = kernel_inputs(loader, frames, dev)
     compare_b1 = phase("compare B1", compare_b1_phase, b1_in)
@@ -1212,6 +1519,7 @@ def main() -> int:
                                  acceptance.ROLLING_SHUTTER_KW)
     ct_icp = phase("ct_icp", ct_icp_phase, rs_loader, rs_frames, dev, card)
     profiles = phase("profiles", profiles_phase, rs_loader, rs_frames, dev)
+    posenet = phase("posenet", posenet_phase, dev, card)
     times = phase("times", times_phase, b1_in, b2_in, lc_args, loader, frames, dev, card)
     compare = phase("compare", compare_phase, args.compare, b1_in, b2_in, card)
 
@@ -1221,7 +1529,8 @@ def main() -> int:
         {"card": card, "build": build, "compare_b1": compare_b1,
          "compare_b2": compare_b2, "aggregated": aggregated, "surfel": surfel,
          "highway": highway, "ct_icp": ct_icp, "profiles": profiles, "slam": slam,
-         "cli": cli, "projective": projective_run, "voxel": voxel, "times": times,
+         "cli": cli, "projective": projective_run, "voxel": voxel, "posenet": posenet,
+         "times": times,
          "compare": compare, "seconds": seconds},
         indent=1, default=str))
     b1_paths = {"aggregated": aggregated["launches"], "highway": highway["launches"],

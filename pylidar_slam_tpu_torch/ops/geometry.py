@@ -20,8 +20,8 @@ def mask_not_null(tensor: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def box_filter(image: torch.Tensor, kernel_size: int) -> torch.Tensor:
-    """Window SUM with SAME zero padding over the two leading dims of an
-    (H, W, C) image, as padded shifted adds in float32.
+    """Window SUM with SAME zero padding over the H and W dims of an
+    (..., H, W, C) image, as padded shifted adds in float32.
 
     Written out rather than as a convolution: cuDNN would run a float32
     convolution in TF32 unless told otherwise, and the normal fit below is
@@ -29,13 +29,13 @@ def box_filter(image: torch.Tensor, kernel_size: int) -> torch.Tensor:
     added in row-major order, one tap at a time -- the order of the JAX
     package's ``reduce_window``, so both round alike.
     """
-    h, w, _ = image.shape
+    h, w = image.shape[-3:-1]
     pad = kernel_size // 2
     padded = F.pad(image, (0, 0, pad, pad, pad, pad))
     out = torch.zeros_like(image)
     for dr in range(kernel_size):
         for dc in range(kernel_size):
-            out = out + padded[dr:dr + h, dc:dc + w]
+            out = out + padded[..., dr:dr + h, dc:dc + w, :]
     return out
 
 
@@ -65,16 +65,16 @@ def inverse_3x3(m: torch.Tensor, eps: float = 1.0e-6
 
 
 def compute_normal_map(vertex_map: torch.Tensor, kernel_size: int = 5) -> torch.Tensor:
-    """Unit normals of an (H, W, 3) vertex map.
+    """Unit normals of an (..., H, W, 3) vertex map.
 
     Solves, per pixel, ``(sum_w v v^T) n = sum_w v`` over a k x k window
     (null pixels contribute zeros), then normalizes.  Singular windows and
     null pixels get a zero normal.
     """
-    h, w, _ = vertex_map.shape
+    lead = vertex_map.shape[:-1]
     v_boxed = box_filter(vertex_map, kernel_size)
     outer = vertex_map[..., :, None] * vertex_map[..., None, :]
-    cov_boxed = box_filter(outer.reshape(h, w, 9), kernel_size).reshape(h, w, 3, 3)
+    cov_boxed = box_filter(outer.reshape(lead + (9,)), kernel_size).reshape(lead + (3, 3))
 
     inv, det = inverse_3x3(cov_boxed)
     n = (inv @ v_boxed[..., None])[..., 0]

@@ -112,7 +112,9 @@ def build_vertex_map(points: torch.Tensor, proj: SphericalProjection,
     ch = channels.reshape(b, n, channels.shape[-1])
     dev = points.device
 
-    rows, cols, r = proj.project(pts)
+    # the winners are picked without gradient: the gathered channels carry
+    # it (straight-through on the indices, as in the JAX package)
+    rows, cols, r = proj.project(pts.detach())
     rows = torch.round(rows)
     cols = torch.round(cols)
     valid = (rows >= 0) & (rows <= h - 1) & (cols >= 0) & (cols <= w - 1) & (r > 0.0)

@@ -10,7 +10,9 @@ each frame.  Variants:
   round trip).
 * **EI** -- elevation-image 2D prior by BEV phase correlation
   (``ops/bev.py``).
-* **PoseNet** -- the deep-learning track, not ported yet (ROADMAP.md A.15).
+* **PoseNet** -- a trained checkpoint regresses the prior from the previous
+  and current scans (``slam/odometry/posenet_odometry.py``); the prior stays
+  on the device.
 """
 from __future__ import annotations
 
@@ -21,6 +23,19 @@ import numpy as np
 import torch
 
 from pylidar_slam_tpu_torch.config import MISSING, Registry
+
+
+def frame_points(data_dict: dict) -> np.ndarray:
+    """The frame's host (N, 3+) cloud: ``numpy_pc``, or the pixels of a
+    (H, W, 3) / (3, H, W) ``vertex_map``, numpy or tensor."""
+    key = "numpy_pc" if "numpy_pc" in data_dict else "vertex_map"
+    data = data_dict[key]
+    data = data.cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
+    if data.ndim == 3:
+        if data.shape[0] == 3:
+            data = data.transpose(1, 2, 0)
+        data = data.reshape(-1, 3)
+    return data
 
 
 @dataclass
@@ -131,14 +146,7 @@ class ElevationImageInitialization(Initialization):
     def next_initial_pose(self, data_dict: Optional[dict] = None, **kwargs):
         from pylidar_slam_tpu_torch.ops import bev
         cfg = self.config
-        key = "numpy_pc" if "numpy_pc" in data_dict else "vertex_map"
-        data = data_dict[key]
-        data = data.cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data)
-        if data.ndim == 3:
-            if data.shape[0] == 3:
-                data = data.transpose(1, 2, 0)
-            data = data.reshape(-1, 3)
-        image = self._image(data)
+        image = self._image(frame_points(data_dict))
         if self._prev_image is None:
             self._prev_image = image
             return None
@@ -166,10 +174,27 @@ class PNConfig(InitializationConfig):
 
 
 class PoseNetInitialization(Initialization):
-    def __init__(self, config: PNConfig, **kwargs):
-        raise NotImplementedError(
-            "PoseNet initialization is the deep-learning track, not ported yet: "
-            "ROADMAP.md A.15")
+    """Regresses the prior from the previous and current scans via PoseNet."""
+
+    def __init__(self, config: PNConfig, projector=None, device="cuda", **kwargs):
+        super().__init__(config)
+        from pylidar_slam_tpu_torch.slam.odometry.posenet_odometry import _PoseNetInference
+        self.inference = _PoseNetInference(
+            str(config.train_dir), config.train_config_file, config.checkpoint_file,
+            projector, torch.device(device), config.num_points_padded)
+        self._prev = None
+
+    def init(self):
+        self._prev = None
+
+    def next_initial_pose(self, data_dict: Optional[dict] = None, **kwargs):
+        pts, mask = self.inference.upload(frame_points(data_dict))
+        if self._prev is None:
+            self._prev = (pts, mask)
+            return None
+        _, rpose = self.inference(*self._prev, pts, mask)
+        self._prev = (pts, mask)
+        return rpose  # a device tensor, used as it is by the odometry
 
 
 INITIALIZATION = Registry("initialization", type_key="type")

@@ -17,6 +17,7 @@ from pylidar_slam_tpu_torch.dataset import DATASET, UNPORTED
 from pylidar_slam_tpu_torch.slam.initialization import INITIALIZATION
 from pylidar_slam_tpu_torch.slam.odometry import ODOMETRY
 from pylidar_slam_tpu_torch.slam.odometry_runner import resolve_device
+from pylidar_slam_tpu_torch.train import build_trainer
 
 CONFIG = Path(__file__).resolve().parents[1] / "config"
 
@@ -116,10 +117,13 @@ def test_registries():
         with pytest.raises(NotImplementedError, match="A.17"):
             DATASET.load({"dataset": name})
     assert ODOMETRY.get("icp_F2M")[0].__name__ == "ICPFrameToModel"
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ODOMETRY.load({"algorithm": "posenet"})
-    with pytest.raises(NotImplementedError, match="A.15"):
-        INITIALIZATION.load({"type": "posenet"})
+    assert ODOMETRY.get("posenet")[0].__name__ == "PoseNetOdometry"
+    assert INITIALIZATION.get("posenet")[0].__name__ == "PoseNetInitialization"
+    # training across several cards is not ported
+    cfg = tconfig.compose(str(CONFIG), "train_posenet", ["dataset=synthetic", "device=cpu"])
+    for override in ({"data_parallel": True}, {"tensor_parallel": 2}):
+        with pytest.raises(NotImplementedError, match="A.18"):
+            build_trainer(dict(cfg, **override))
     assert INITIALIZATION.load({"type": "none"}) is None
     with pytest.raises(KeyError, match="Registered"):
         INITIALIZATION.load({"type": "bogus"})
