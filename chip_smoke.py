@@ -48,6 +48,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the highway and ct_icp paths three steps under ``torch.profiler``
    (kernels and device ms per step) and under a wall clock (the device's
    idle share of a step);
+9b. datasets: on-disk sequences fabricated under ``build/chip_datasets/``
+   by ``scripts/fabricate_datasets.py`` (cached by settings): the acceptance
+   sequence's 140 frames raycast at 64 x 2,048 rays with 0.05 degree beam
+   jitter as KITTI sequence ``00`` (float32 ``.bin`` scans, ``calib.txt``,
+   camera-frame poses), and the 100 rolling-shutter frames, with the same
+   jitter, as CT-ICP PLY frames with a per-point ``timestamp`` and
+   ``trajectory.txt``; the KITTI
+   reader's own rate (``seq[i]`` on this host); then three runs through
+   the port's CLI in this process (``pylidar_slam_tpu_torch.run.main``, no
+   device override, so on the card): ``dataset=kitti
+   slam/odometry/local_map=aggregated`` twice (B1's launches counted and
+   equal between the two), ``dataset=kitti`` with ``config/slam.yaml``'s
+   defaults (the surfel map with hash NN: no kernel launch), and
+   ``dataset=ct_icp slam/odometry=ct_icp`` (the elastic aggregated map,
+   B1): tr_err at most the JAX package's on the same files on the CPU + 0.1
+   pt (``scripts/jax_cpu_dataset_bars.py``), ATE < 0.05 m (KITTI) and <
+   0.12 m (CT-ICP), every KITTI scan read by the native one-pass reader;
+   one step of each configuration under sync-debug "error" and three under
+   the profiler and a wall clock;
 10. slam: the port's ``SLAM`` (aggregated odometry with 6 GN trips, f32
    uploads, the elevation-image loop closure at its published widths --
    512 px images, 4096-point refine clouds, 10 candidates, Fourier-Mellin
@@ -120,6 +139,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import math
 import os
 import re
@@ -152,6 +172,8 @@ from pylidar_slam_tpu_torch.utils import device_timing, native
 from pylidar_slam_tpu_torch.utils.device_timing import graph_ms, time_calls
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "scripts"))
+import fabricate_datasets as fab  # noqa: E402
 SCHEMES = ["least_square", "default", "huber", "exp", "neighborhood",
            "geman_mcclure", "square_geman_mcclure", "cauchy"]
 PLANE_GATES = [0.0, 0.1]
@@ -226,6 +248,27 @@ JAX_CPU_POSENET = {"ate_m": 3.0491583206568817, "identity_ate_m": 21.43318923449
                    "relative_ate_m": 0.11415313096692876,
                    "identity_relative_ate_m": 1.0725000000000002}
 UNSUPERVISED_STEPS = 20
+# The datasets phase: (the root's environment variable, the sequence writer,
+# the CLI's overrides, the ATE bar) per run.  kitti runs twice, to hold B1's
+# launch count between two runs.  The bars: the JAX package's tr_err over
+# the same files on the CPU (scripts/jax_cpu_dataset_bars.py) + 0.1 pt; ATE
+# 0.05 m on KITTI (as the champions) and the JAX pin's 0.12 m on CT-ICP.
+DATASETS_DIR = ROOT / "build" / "chip_datasets"
+KITTI_ARGV = ["dataset=kitti", 'dataset.train_sequences=["00"]']
+DATASET_RUNS = {
+    "kitti": ("KITTI_ODOM_ROOT", fab.kitti_sequence,
+              KITTI_ARGV + ["slam/odometry/local_map=aggregated"], 0.05),
+    "kitti_default": ("KITTI_ODOM_ROOT", fab.kitti_sequence, KITTI_ARGV, 0.05),
+    "ct_icp_files": ("CT_ICP_ROOT", fab.ct_icp_sequence,
+                     ["dataset=ct_icp", "slam/odometry=ct_icp"], CT_ICP_ATE_M),
+}
+JAX_CPU_DATASET_TR_ERR = {"kitti": 0.0039289718311631755,
+                          "kitti_default": 0.00012264956571831547,
+                          "ct_icp_files": 0.018633348565646343}
+# the files those bars were scored on (fabricate_datasets.digest)
+DATASET_DIGESTS = {
+    "kitti": "a95a51de50e699134c7eef338fd8527dcc7436cb311160e9d880f6c372b8b9ae",
+    "ct_icp": "761d3b702a74dff3b0d7ea466d693eb654339b8822b14f01a250ecd898307b9e"}
 
 
 def log(msg: str):
@@ -638,6 +681,154 @@ def profiles_phase(loader, frames, dev) -> dict:
         odom, out[name] = profile_run(name, cfg, loader, frames, dev)
         _expect_launches(name, cfg, len(frames), out[name]["launches"])
         sync_check(name, odom, frames[-1])
+    return out
+
+
+class _RunnerLog(logging.Handler):
+    """Keeps the SLAM runner's log lines (its device and scans/s)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _reader_rate(seq) -> float:
+    """scans/s of `seq[i]` over the whole sequence, one thread, on this
+    host (the files were just written or read: the page cache holds them)."""
+    t0 = time.perf_counter()
+    for i in range(len(seq)):
+        seq[i]
+    return len(seq) / (time.perf_counter() - t0)
+
+
+def dataset_cli_run(name) -> dict:
+    """One run of DATASET_RUNS[name] through the port's CLI in this process,
+    with no device override, B1's and B2's launches and the native KITTI
+    reads counted (each set to 0 just before the run, read just after)."""
+    from pylidar_slam_tpu_torch import run as trun
+    env, make, argv, _ = DATASET_RUNS[name]
+    os.environ[env] = str(make(DATASETS_DIR))
+    log_dir = ROOT / "build" / f"chip_{name}"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    argv = argv + [f"log_dir={log_dir}", "num_workers=8"]
+    handler = _RunnerLog()
+    runner_log = logging.getLogger("pylidar_slam_tpu_torch.slam.odometry_runner")
+    runner_log.addHandler(handler)
+    runner_log.setLevel(logging.INFO)
+    b1.assoc_gn.launches = 0
+    b2.nn_argmin.launches = 0
+    native.load_kitti_scan.reads = 0
+    t0 = time.perf_counter()
+    try:
+        metrics = trun.main(argv)
+    finally:
+        runner_log.removeHandler(handler)
+    seconds = time.perf_counter() - t0
+    launches, nn, reads = b1.assoc_gn.launches, b2.nn_argmin.launches, native.load_kitti_scan.reads
+    if not any(" on cuda" in line for line in handler.lines):
+        raise AssertionError(f"{name}: the CLI did not run on the card: {handler.lines}")
+    (seq, m), = ((k, v) for k, v in metrics.items() if k != "AVG")
+    rate = next((line for line in handler.lines if "scans/s" in line), "")
+    frames = int(re.search(r": (\d+) frames in", rate).group(1))
+    return {"argv": argv, "sequence": seq, "seconds": seconds, "metrics": m,
+            "rate_line": rate, "frames": frames, "scans_per_s": _rate_of(rate, frames, seconds),
+            "tr_err": m.get("tr_err"), "ate_m": m["ATE"], "launches": launches,
+            "nn_argmin_launches": nn, "native_reads": reads}
+
+
+def _dataset_bar(name, out, card) -> dict:
+    bar = JAX_CPU_DATASET_TR_ERR[name] + BAR_PT
+    ate_bar = DATASET_RUNS[name][3]
+    log(f"[datasets] {card}: {name}: python -m pylidar_slam_tpu_torch.run "
+        f"{' '.join(out['argv'])}: {out['frames']} frames, tr_err {_pct(out['tr_err'])} ATE "
+        f"{out['ate_m']:.5f} m, {out['scans_per_s']:.2f} scans/s ({out['rate_line']}; "
+        f"{out['seconds']:.1f} s in all); assoc_gn launches {out['launches']}, nn_argmin "
+        f"launches {out['nn_argmin_launches']}, native KITTI reads {out['native_reads']}; bar: "
+        f"tr_err <= {100 * bar:.4f}% (the JAX package on the CPU "
+        f"{100 * JAX_CPU_DATASET_TR_ERR[name]:.4f}% + 0.1 pt), ATE < {ate_bar} m")
+    if out["tr_err"] is None or not out["tr_err"] <= bar:
+        raise AssertionError(f"{name}: tr_err {out['tr_err']} above the bar {bar}")
+    if not out["ate_m"] < ate_bar:
+        raise AssertionError(f"{name}: ATE {out['ate_m']} m")
+    return {"tr_err_bar": bar, "ate_bar_m": ate_bar}
+
+
+def dataset_step(name, dev, card) -> dict:
+    """One step of the run's configuration in this process, on the loader's
+    own frames, under sync-debug "error", then three under the profiler."""
+    env, make, argv, _ = DATASET_RUNS[name]
+    os.environ[env] = str(make(DATASETS_DIR))
+    cfg = compose(str(ROOT / "config"), "slam", argv)
+    loader = DATASET.load(dict(cfg["dataset"]))
+    ds = loader.sequences()[0][0][0]
+    odom = ICPFrameToModel(cfg["slam"]["odometry"], projector=loader.projector(), device=dev)
+    last = None
+    for i in range(6):
+        d = dict(ds[i]) if last is None else dict(ds[i], init_rpose=last)
+        odom.process_next_frame(d)
+        last = d.get("odometry_pose")
+    sync_check(f"datasets {name}", odom, ds[6])
+    return step_profile(f"datasets {name} {card}", odom, ds[6])
+
+
+def datasets_phase(dev, card) -> dict:
+    """The on-disk sequences through the port's CLI (see the module's
+    docstring, phase 9b)."""
+    from pylidar_slam_tpu_torch.dataset.kitti_dataset import KITTIOdometrySequence
+    from pylidar_slam_tpu_torch.dataset.ct_icp_dataset import CTICPSequence
+    out = {}
+    t0 = time.perf_counter()
+    roots = {"kitti": fab.kitti_sequence(DATASETS_DIR), "ct_icp": fab.ct_icp_sequence(DATASETS_DIR)}
+    out["fabricate_s"] = time.perf_counter() - t0
+    out["digests"] = {k: fab.digest(r) for k, r in roots.items()}
+    out["same_bytes_as_bars"] = {k: out["digests"][k] == DATASET_DIGESTS[k] for k in roots}
+    log(f"[datasets] files under {DATASETS_DIR} ready in {out['fabricate_s']:.1f} s; the same "
+        f"bytes as the JAX package's bars read: {out['same_bytes_as_bars']}")
+    native.load_kitti_scan.reads = 0
+    kitti = KITTIOdometrySequence(str(roots["kitti"]), fab.KITTI_SEQUENCE)
+    ply = CTICPSequence(str(roots["ct_icp"]), fab.CT_ICP_SEQUENCE)
+    out["reader_scans_per_s"] = {"kitti": _reader_rate(kitti), "ct_icp": _reader_rate(ply)}
+    points = [len(kitti[i]["numpy_pc"]) for i in (0, len(kitti) - 1)]
+    if native.load_kitti_scan.reads != len(kitti) + 2:
+        raise AssertionError(f"the native KITTI reader read {native.load_kitti_scan.reads} "
+                             f"scans of {len(kitti) + 2}")
+    log(f"[datasets] {card}: the readers on this host, one thread: KITTI "
+        f"{out['reader_scans_per_s']['kitti']:.1f} scans/s (native one-pass reader; "
+        f"{points} points in the first and last scans), CT-ICP PLY "
+        f"{out['reader_scans_per_s']['ct_icp']:.1f} scans/s")
+
+    runs = {}
+    for name, repeat in (("kitti", 2), ("kitti_default", 1), ("ct_icp_files", 1)):
+        results = [dataset_cli_run(name) for _ in range(repeat)]
+        run = results[0]
+        run["launches_runs"] = [r["launches"] for r in results]
+        run["repeats"] = [{k: r[k] for k in ("tr_err", "ate_m", "scans_per_s", "seconds")}
+                          for r in results[1:]]
+        for again in run["repeats"]:
+            log(f"[datasets] {card}: {name} again: tr_err {_pct(again['tr_err'])} ATE "
+                f"{again['ate_m']:.5f} m, {again['scans_per_s']:.2f} scans/s")
+        run.update(_dataset_bar(name, run, card))
+        if name.startswith("kitti") and any(r["native_reads"] != r["frames"] for r in results):
+            raise AssertionError(f"{name}: {[r['native_reads'] for r in results]} native "
+                                 f"reads of {run['frames']} frames")
+        if name == "kitti_default":
+            _no_kernel_launches("kitti_default")
+        else:
+            # one launch per GN trip of every frame after the first
+            trips = compose(str(ROOT / "config"), "slam", DATASET_RUNS[name][2])["slam"][
+                "odometry"]["max_num_alignments"]
+            run["expected_launches"] = int(trips) * (run["frames"] - 1)
+            log(f"[datasets] {name}: assoc_gn launches {run['launches_runs']} (expected "
+                f"{run['expected_launches']} in each run)")
+            if set(run["launches_runs"]) != {run["expected_launches"]}:
+                raise AssertionError(f"{name}: assoc_gn launches {run['launches_runs']}, "
+                                     f"expected {run['expected_launches']}")
+        run["step"] = dataset_step(name, dev, card)
+        runs[name] = run
+    out["runs"] = runs
     return out
 
 
@@ -1478,7 +1669,7 @@ def main() -> int:
                         help="another checkout of the package (e.g. an earlier commit "
                              "unpacked by git archive) whose kernels are timed against "
                              "this one's; repeatable")
-    parser.add_argument("--only", choices=["posenet"],
+    parser.add_argument("--only", choices=["posenet", "datasets"],
                         help="build, then run this phase alone (a probe: no result line)")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
@@ -1497,7 +1688,8 @@ def main() -> int:
 
     build = phase("build", build_phase)
     if args.only:
-        result = phase(args.only, {"posenet": posenet_phase}[args.only], dev, card)
+        result = phase(args.only, {"posenet": posenet_phase,
+                                   "datasets": datasets_phase}[args.only], dev, card)
         (ROOT / "build" / f"chip_smoke_{args.only}.json").write_text(json.dumps(
             {"card": card, args.only: result, "seconds": seconds}, indent=1, default=str))
         log(f"[{args.only}] {card}: probe passed (no result line: the full run prints it)")
@@ -1519,6 +1711,7 @@ def main() -> int:
                                  acceptance.ROLLING_SHUTTER_KW)
     ct_icp = phase("ct_icp", ct_icp_phase, rs_loader, rs_frames, dev, card)
     profiles = phase("profiles", profiles_phase, rs_loader, rs_frames, dev)
+    datasets = phase("datasets", datasets_phase, dev, card)
     posenet = phase("posenet", posenet_phase, dev, card)
     times = phase("times", times_phase, b1_in, b2_in, lc_args, loader, frames, dev, card)
     compare = phase("compare", compare_phase, args.compare, b1_in, b2_in, card)
@@ -1530,12 +1723,15 @@ def main() -> int:
          "compare_b2": compare_b2, "aggregated": aggregated, "surfel": surfel,
          "highway": highway, "ct_icp": ct_icp, "profiles": profiles, "slam": slam,
          "cli": cli, "projective": projective_run, "voxel": voxel, "posenet": posenet,
+         "datasets": datasets,
          "times": times,
          "compare": compare, "seconds": seconds},
         indent=1, default=str))
     b1_paths = {"aggregated": aggregated["launches"], "highway": highway["launches"],
                 "ct_icp": ct_icp["elastic"]["launches"],
-                **{name: run["launches"] for name, run in profiles.items()}}
+                **{name: run["launches"] for name, run in profiles.items()},
+                "kitti": datasets["runs"]["kitti"]["launches"],
+                "ct_icp_files": datasets["runs"]["ct_icp_files"]["launches"]}
 
     kernels = []
     for kname, run, result in (("assoc_gn", aggregated, compare_b1),

@@ -8,6 +8,7 @@ Loaders are numpy; the odometry uploads what it needs.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 from pylidar_slam_tpu_torch.config import MISSING
 from pylidar_slam_tpu_torch.ops.projection import SphericalProjection
@@ -59,3 +60,19 @@ class DatasetLoader:
 
     def get_ground_truth(self, sequence_name):
         return None
+
+
+class WindowDataset:
+    """The window [start, start + length) of a map-style dataset (replay
+    runs a window of a sequence)."""
+
+    def __init__(self, dataset, start: int = 0, length: Optional[int] = None):
+        self.dataset = dataset
+        self.start = start
+        self.length = length if length is not None else len(dataset) - start
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        return self.dataset[self.start + idx]

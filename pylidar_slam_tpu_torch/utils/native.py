@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import logging
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,6 +37,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
                        "fallbacks", e)
         return None
     lib = ctypes.CDLL(str(path))
+    lib.load_kitti_scan.restype = ctypes.c_int
+    lib.load_kitti_scan.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int]
     lib.encode_range_image.restype = ctypes.c_int
     lib.encode_range_image.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -49,6 +52,29 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     return lib
+
+
+def load_kitti_scan(path: str, capacity: int) -> Optional[Tuple[np.ndarray, int]]:
+    """KITTI ``.bin`` scan read in one pass: the 0.205 degree correction
+    applied in float32 and rows holding a NaN dropped.  A zero-padded
+    (capacity, 3) float32 buffer and its number of valid rows; None if the
+    native library is unavailable or the file cannot be opened.  Counts its
+    reads in ``load_kitti_scan.reads``."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.zeros((capacity, 3), np.float32)
+    n = lib.load_kitti_scan(str(path).encode(), out.ctypes.data_as(ctypes.c_void_p),
+                            capacity)
+    if n < 0:
+        return None
+    with _READS_LOCK:  # the runner's prefetch threads read concurrently
+        load_kitti_scan.reads += 1
+    return out, int(n)
+
+
+load_kitti_scan.reads = 0
+_READS_LOCK = threading.Lock()
 
 
 def encode_range_image_planes(points: np.ndarray, h: int, w: int,

@@ -11,9 +11,10 @@ import torch
 import yaml
 
 from pylidar_slam_tpu import config as jconfig
+from pylidar_slam_tpu.dataset import DATASET as JDATASET
 
 from pylidar_slam_tpu_torch import config as tconfig
-from pylidar_slam_tpu_torch.dataset import DATASET, UNPORTED
+from pylidar_slam_tpu_torch.dataset import DATASET
 from pylidar_slam_tpu_torch.slam.initialization import INITIALIZATION
 from pylidar_slam_tpu_torch.slam.odometry import ODOMETRY
 from pylidar_slam_tpu_torch.slam.odometry_runner import resolve_device
@@ -113,9 +114,11 @@ def test_compose_errors_match_jax(monkeypatch):
 
 def test_registries():
     assert DATASET.get("synthetic")[0].__name__ == "SyntheticDatasetLoader"
-    for name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="A.17"):
-            DATASET.load({"dataset": name})
+    # every loader of the JAX package, under its name, with its config
+    assert sorted(DATASET.keys()) == sorted(JDATASET.keys())
+    for name in JDATASET.keys():
+        ours, ref = DATASET.get(name), JDATASET.get(name)
+        assert [c.__name__ for c in ours] == [c.__name__ for c in ref]
     assert ODOMETRY.get("icp_F2M")[0].__name__ == "ICPFrameToModel"
     assert ODOMETRY.get("posenet")[0].__name__ == "PoseNetOdometry"
     assert INITIALIZATION.get("posenet")[0].__name__ == "PoseNetInitialization"
