@@ -67,6 +67,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    0.12 m (CT-ICP), every KITTI scan read by the native one-pass reader;
    one step of each configuration under sync-debug "error" and three under
    the profiler and a wall clock;
+9c. parallel: the surfel champion over the 140 frames with
+   ``shard_points=2``, 2 ranks spawned on cuda:0 in a gloo group (NCCL
+   refuses two ranks on one card): the round's bar, both ranks' poses bit
+   for bit, 2,780 B2 launches per rank, the all-reduces (host round trips)
+   per frame, the gap to phase 5's unsharded trajectory; in the same ranks
+   one PoseResNet-18 train step at 64x1024 and batch 8 with dp=2 and with
+   tp=2 against the one-process step on the same batch and weights (loss and
+   every weight's update); then ``-m ... parallel_jobs=2`` (aggregated map,
+   40 frames, two speeds) through ``pylidar_slam_tpu_torch.run.main``
+   against the same jobs one after the other: equal poses, B1's launches;
+   and B2 at a rank's shard (M/2 targets) against its plain version, timed;
+9d. viz: the ``cli`` recipe with ``save_map=true`` in this process (the PLY,
+   the HTML file and their point count; the PNG views only with
+   matplotlib), ``pylidar_slam_tpu_torch.replay`` over the whole window
+   (poses bit for bit the run's) and over 40 frames, ``aggregate_map_cloud``
+   over the KITTI sequence's ~17 M points on the card against numpy,
+   exactly, and ``viz_debug`` over 3 frames;
 10. slam: the port's ``SLAM`` (aggregated odometry with 6 GN trips, f32
    uploads, the elevation-image loop closure at its published widths --
    512 px images, 4096-point refine clouds, 10 candidates, Fourier-Mellin
@@ -1659,6 +1676,405 @@ def compare_phase(others, b1_inputs, b2_args, card) -> list:
     return rows
 
 
+# ----------------------------------------------------------------------------
+# parallel: point-sharded surfel odometry, dp / tp train steps, parallel jobs
+# ----------------------------------------------------------------------------
+
+# The sharded champion against the unsharded one: the partial normal
+# equations add in another order, and the champion's knn normals carry such
+# last-bit differences forward (tests/test_parallel.py's bar for knn normals
+# under sharding, on the relative-pose matrices).
+SHARD_POSE_ATOL = 3e-2
+SHARDS = 2
+TRAIN_BATCH = 8
+# The parallel train step against the one-process step (sgd, so an update
+# is a gradient): tests/test_torch_training.py's one-step bars, each weight's
+# update gap also allowed 1e-5 of the whole model's update norm (a gradient
+# that sums to near zero, as a BatchNorm bias's can, keeps the rounding of
+# its terms).
+TRAIN_LOSS_RTOL, TRAIN_UPDATE_TOL, TRAIN_STATS_TOL = 1e-4, 1e-3, 1e-4
+TRAIN_UPDATE_FLOOR = 1e-5
+TRAIN_LR = 1e-2
+MULTIRUN_FRAMES = 40
+MULTIRUN_ARGV = ["-m", "dataset=synthetic", f"dataset.num_frames={MULTIRUN_FRAMES}",
+                 "slam/odometry/local_map=aggregated", "dataset.speed=1.0,1.3",
+                 "num_workers=8"]
+
+
+def _parallel_trainer(dev, proj, train_dir, **kw):
+    """Supervised PoseResNet-18 (learned exp weights, sgd) at 64x1024 and
+    batch 8, from the port's seeded initialisation."""
+    from pylidar_slam_tpu_torch.training import loss_modules, trainer
+    from pylidar_slam_tpu_torch.training.prediction_modules import PredictionConfig
+
+    class _Loader:
+        def projector(self):
+            return proj
+
+    cfg = trainer.ATrainerConfig(train_dir=str(train_dir), batch_size=TRAIN_BATCH,
+                                 with_tensorboard=False, optimizer_type="sgd",
+                                 optimizer_learning_rate=TRAIN_LR, device=str(dev), **kw)
+    tr = trainer.PoseNetTrainer(cfg, PredictionConfig(),
+                                loss_modules.SupervisedLossConfig(with_exp_weights=True),
+                                _Loader())
+    tr._init_state()
+    return tr
+
+
+def _train_step_result(tr, batch, keep_state: bool) -> dict:
+    """One step on the global batch: loss, wall ms, the whole weights after
+    it (or their digest)."""
+    import hashlib
+    args = [torch.from_numpy(a).to(tr.device) for a in batch]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = tr._train_step(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    state, _ = tr._whole_state()
+    state = {k: v.detach().cpu().numpy().copy() for k, v in state.items()}
+    digest = hashlib.sha256(b"".join(state[k].tobytes() for k in sorted(state))).hexdigest()
+    return {"loss": float(loss), "ms": ms, "digest": digest,
+            "exp_s": tr.exp_s.detach().cpu().numpy(), "split": sorted(tr._split or {}),
+            "state": state if keep_state else None}
+
+
+def _parallel_rank(rank, world, device, frames_file, batch_file, work):
+    """One rank of the parallel phase, on `device` (every rank on cuda:0) in
+    a gloo group: the surfel champion with its targets sharded over the
+    ranks (B2's launches and the all-reduces counted over the run), then a
+    dp=2 and a tp=2 train step."""
+    import torch.distributed as dist
+    dev = torch.device(device)
+    data = np.load(frames_file)
+    frames = [{"numpy_pc": data[f"pc{i}"]} for i in range(len(data.files))]
+    loader = SyntheticDatasetLoader(SyntheticConfig(**acceptance.SEQ_KW))
+    reduces = [0]
+    real = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        reduces[0] += 1
+        return real(*args, **kwargs)
+
+    dist.all_reduce = counted
+    cfg = dataclasses.replace(acceptance.champion_configs()["surfel"], shard_points=world)
+    b2.nn_argmin.launches = 0
+    _, rel, elapsed = run_sequence(cfg, loader, frames, dev)
+    out = {"relative": rel, "seconds": elapsed, "launches": b2.nn_argmin.launches,
+           "all_reduces": reduces[0]}
+    dist.all_reduce = real
+    batch = tuple(np.load(batch_file)[k] for k in ("points", "masks", "gt"))
+    for layout, kw in (("dp", dict(data_parallel=True)), ("tp", dict(tensor_parallel=world))):
+        tr = _parallel_trainer(dev, loader.projector(), Path(work) / f"{layout}{rank}", **kw)
+        out[layout] = _train_step_result(tr, batch, keep_state=rank == 0)
+        del tr
+    return out
+
+
+def _train_batch(frames) -> dict:
+    """Windows (i, i+1), i < 8, of the sequence, padded as the trainer pads."""
+    cap = 131072
+    points = np.zeros((TRAIN_BATCH, 2, cap, 3), np.float32)
+    masks = np.zeros((TRAIN_BATCH, 2, cap), bool)
+    gt = np.zeros((TRAIN_BATCH, 2, 4, 4), np.float32)
+    for i in range(TRAIN_BATCH):
+        for s in range(2):
+            pc = np.asarray(frames[i + s]["numpy_pc"], np.float32)[:cap, :3]
+            points[i, s, :len(pc)] = pc
+            masks[i, s, :len(pc)] = True
+            gt[i, s] = frames[i + s]["absolute_pose_gt"]
+    return {"points": points, "masks": masks, "gt": gt}
+
+
+def _check_train_step(name, ours, ref, before):
+    if not math.isclose(ours["loss"], ref["loss"], rel_tol=TRAIN_LOSS_RTOL):
+        raise AssertionError(f"{name}: loss {ours['loss']} against {ref['loss']}")
+    worst = {"update": 0.0, "stats": 0.0, "of_bound": 0.0, "weight": ""}
+    whole = math.sqrt(sum(float(np.sum((r - before[k]) ** 2))
+                          for k, r in ref["state"].items() if "running" not in k))
+    for key, r in ref["state"].items():
+        o = ours["state"][key]
+        if "running" in key:
+            err = float(np.abs(o - r).max() / max(np.abs(r).max(), 1e-12))
+            worst["stats"] = max(worst["stats"], err)
+            if err > TRAIN_STATS_TOL:
+                raise AssertionError(f"{name}: {key} {err:.3e} of its scale")
+            continue
+        d_ref = r - before[key]
+        err = float(np.linalg.norm(o - before[key] - d_ref))
+        bound = (TRAIN_UPDATE_TOL * np.linalg.norm(d_ref) + TRAIN_UPDATE_FLOOR * whole
+                 + np.linalg.norm(2 * np.spacing(r)))
+        worst["update"] = max(worst["update"], err / max(float(np.linalg.norm(d_ref)), 1e-30))
+        if err / bound > worst["of_bound"]:
+            worst["of_bound"], worst["weight"] = float(err / bound), key
+        if err > bound:
+            raise AssertionError(f"{name}: {key} update off by {err:.3e} (bound {bound:.3e})")
+    return worst
+
+
+def _multirun(parallel_jobs: int) -> dict:
+    from pylidar_slam_tpu_torch import run as trun
+    log_dir = ROOT / "build" / f"chip_multirun_{parallel_jobs}"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    b1.assoc_gn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = trun.main(MULTIRUN_ARGV + [f"parallel_jobs={parallel_jobs}", f"log_dir={log_dir}"])
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "launches": b1.assoc_gn.launches,
+            "dir": log_dir, "metrics": results}
+
+
+def multirun_check(card) -> dict:
+    """`-m ... parallel_jobs=2` (two job threads on the card, each on its own
+    stream, B1 in both at once) against the same two jobs one after the
+    other: each job's poses equal, B1's launches the two jobs' sum."""
+    from pylidar_slam_tpu_torch.utils.io import read_poses_from_disk
+    alone = _multirun(1)
+    both = _multirun(2)
+    trips = compose(str(ROOT / "config"), "slam", MULTIRUN_ARGV[1:4])["slam"]["odometry"][
+        "max_num_alignments"]
+    expected = 2 * int(trips) * (MULTIRUN_FRAMES - 1)
+    same = []
+    for job in range(2):
+        if not (both["dir"] / str(job) / "metrics.yaml").exists():
+            raise AssertionError(f"multirun: job {job} wrote no metrics.yaml")
+        same.append(bool(np.array_equal(
+            read_poses_from_disk(str(both["dir"] / str(job) / "synth_00.poses.txt")),
+            read_poses_from_disk(str(alone["dir"] / str(job) / "synth_00.poses.txt")))))
+    log(f"[parallel] {card}: multirun -m {' '.join(MULTIRUN_ARGV[1:])}: parallel_jobs=2 "
+        f"{both['seconds']:.1f} s against parallel_jobs=1 {alone['seconds']:.1f} s (wall, "
+        f"both jobs); assoc_gn launches {both['launches']} and {alone['launches']} (expected "
+        f"{expected}); each job's poses equal to the job run alone: {same}")
+    if not all(same):
+        raise AssertionError(f"multirun: a parallel job's poses differ from the job alone: {same}")
+    if both["launches"] != expected or alone["launches"] != expected:
+        raise AssertionError(f"multirun: assoc_gn launches {both['launches']} / "
+                             f"{alone['launches']}, expected {expected}")
+    return {"parallel_s": both["seconds"], "sequential_s": alone["seconds"],
+            "launches": both["launches"], "expected_launches": expected,
+            "same_poses": same, "metrics": both["metrics"]}
+
+
+def sharded_b2(b2_args, card) -> dict:
+    """B2 at a rank's shard: the first M/S of the next frame's targets
+    against the whole map, against its plain version, and timed."""
+    queries, model, valid = b2_args
+    block = queries[:queries.shape[0] // SHARDS].contiguous()
+    case = _b2_case(f"sharded surfel block M/{SHARDS}", block, model, valid)
+    masked = torch.where(valid[:, None], model, torch.full_like(model, math.inf))
+    times = kernel_times(
+        "nn_argmin", lambda: b2.nn_argmin(block, model, valid),
+        lambda: b2.nn_argmin_plain(block, model, valid),
+        lambda: torch.cdist(block, masked,
+                            compute_mode="donot_use_mm_for_euclid_dist").min(dim=1),
+        b2_bound(block, model, valid), card, f"M={block.shape[0]} V={model.shape[0]} "
+        f"(a rank's shard of the surfel targets)")
+    return {"compare": case, "times": times}
+
+
+def parallel_phase(loader, frames, dev, card, surfel_odom=None) -> dict:
+    """Multi-rank execution on the card (see the module's docstring)."""
+    work = ROOT / "build" / "chip_parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    if surfel_odom is None:  # run alone: the unsharded champion first
+        surfel_odom, _ = surfel_phase(loader, frames, dev)
+    unsharded = surfel_odom.get_relative_poses()
+    np.savez(work / "frames.npz", **{f"pc{i}": np.asarray(f["numpy_pc"], np.float32)
+                                     for i, f in enumerate(frames)})
+    np.savez(work / "batch.npz", **_train_batch(frames))
+    from pylidar_slam_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(_parallel_rank, SHARDS, work, str(dev), str(work / "frames.npz"),
+                      str(work / "batch.npz"), str(work))
+    spawn_s = time.perf_counter() - t0
+    out = {"spawn_s": spawn_s}
+
+    # the sharded surfel champion
+    n = len(frames)
+    expected = acceptance.champion_configs()["surfel"].max_num_alignments * (n - 1)
+    rel = ranks[0]["relative"]
+    identical = all(np.array_equal(r["relative"], rel) for r in ranks[1:])
+    gap = float(np.abs(rel - unsharded).max())
+    launches = [r["launches"] for r in ranks]
+    reduces = [r["all_reduces"] for r in ranks]
+    m = score("sharded surfel", rel, loader, n)
+    log(f"[parallel] {card}: surfel champion, shard_points={SHARDS} ({SHARDS} ranks on "
+        f"cuda:0, gloo): {n} frames in {[round(r['seconds'], 2) for r in ranks]} s "
+        f"({[round(n / r['seconds'], 2) for r in ranks]} scans/s); nn_argmin launches per "
+        f"rank {launches} (expected {expected}); all-reduces per rank {reduces} "
+        f"({reduces[0] / (n - 1):.2f} per frame, each a host round trip under gloo: the "
+        f"path's host syncs per frame); ranks bit-identical {identical}; max gap to the "
+        f"unsharded run {gap:.3e} (bar {SHARD_POSE_ATOL})")
+    if not identical:
+        raise AssertionError("sharded surfel: the ranks' trajectories differ")
+    if set(launches) != {expected}:
+        raise AssertionError(f"sharded surfel: nn_argmin launches {launches}, expected {expected}")
+    if gap > SHARD_POSE_ATOL:
+        raise AssertionError(f"sharded surfel: {gap} from the unsharded trajectory")
+    out["sharded_surfel"] = {"frames": n, "launches": launches[0], "all_reduces": reduces,
+                             "all_reduces_per_frame": reduces[0] / (n - 1),
+                             "seconds": [r["seconds"] for r in ranks],
+                             "scans_per_s": [n / r["seconds"] for r in ranks],
+                             "gap_to_unsharded": gap, **m}
+
+    # dp=2 and tp=2 train steps against the one-process step
+    batch = tuple(np.load(work / "batch.npz")[k] for k in ("points", "masks", "gt"))
+    ref_tr = _parallel_trainer(dev, loader.projector(), work / "one")
+    before = {k: v.detach().cpu().numpy().copy()
+              for k, v in ref_tr.module.state_dict().items()}
+    ref = _train_step_result(ref_tr, batch, keep_state=True)
+    del ref_tr
+    for layout in ("dp", "tp"):
+        res = [r[layout] for r in ranks]
+        if len({r["digest"] for r in res}) != 1 or len({r["loss"] for r in res}) != 1:
+            raise AssertionError(f"{layout}=2: the ranks' weights differ")
+        worst = _check_train_step(f"{layout}=2", res[0], ref, before)
+        log(f"[parallel] {card}: PoseResNet-18 train step at 64x1024, batch {TRAIN_BATCH}, "
+            f"{layout}=2: loss {res[0]['loss']:.6f} against the one-process step's "
+            f"{ref['loss']:.6f}; worst update gap {worst['update']:.3e} of its norm, "
+            f"BatchNorm statistics {worst['stats']:.3e} (bars {TRAIN_LOSS_RTOL} / "
+            f"{TRAIN_UPDATE_TOL} + {TRAIN_UPDATE_FLOOR} of the model's update / "
+            f"{TRAIN_STATS_TOL}; closest to its bound: {worst['weight']} at "
+            f"{worst['of_bound']:.3f}); {len(res[0]['split'])} split weights; first step "
+            f"(set-up included) {res[0]['ms']:.1f} ms wall against {ref['ms']:.1f} ms")
+        out[f"train_{layout}"] = {"loss": res[0]["loss"], "ref_loss": ref["loss"],
+                                  "worst": worst, "ms": [r["ms"] for r in res],
+                                  "ref_ms": ref["ms"], "split_weights": len(res[0]["split"])}
+    out["multirun"] = multirun_check(card)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# viz: save_map, the map cloud on the card, replay, viz_debug
+# ----------------------------------------------------------------------------
+
+VIZ_DEBUG_FRAMES = 3
+REPLAY_WINDOW = 40
+
+
+def _map_cloud_check(dev, card) -> dict:
+    """aggregate_map_cloud over the KITTI sequence's scans (~17 M points)
+    with the datasets run's poses (ground truth when that run is absent),
+    on the card and by numpy, which must agree exactly."""
+    from pylidar_slam_tpu_torch.dataset.kitti_dataset import KITTIOdometrySequence
+    from pylidar_slam_tpu_torch.utils.io import read_poses_from_disk
+    from pylidar_slam_tpu_torch.viz import viz3d
+    seq = KITTIOdometrySequence(str(fab.kitti_sequence(DATASETS_DIR)), fab.KITTI_SEQUENCE)
+    items = [seq[i] for i in range(len(seq))]
+    clouds = [it["numpy_pc"] for it in items]
+    run_poses = ROOT / "build" / "chip_kitti" / f"{fab.KITTI_SEQUENCE}.poses.txt"
+    if run_poses.exists():
+        rel, source = ev.compute_relative_poses(read_poses_from_disk(str(run_poses))), "the run"
+    else:
+        gt = np.stack([np.asarray(it["absolute_pose_gt"], np.float64) for it in items])
+        rel, source = ev.compute_relative_poses(np.linalg.inv(gt[0]) @ gt), "ground truth"
+    points = sum(len(c) for c in clouds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ours = viz3d.aggregate_map_cloud(clouds, rel, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = viz3d.aggregate_map_cloud_numpy(clouds, rel)
+    numpy_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(ours, ref))
+    log(f"[viz] {card}: aggregate_map_cloud over {len(clouds)} KITTI scans ({points} points, "
+        f"poses of {source}, voxel 0.2 m): {len(ours)} points; the voxel dedupe on the card "
+        f"{card_s:.2f} s, numpy (np.unique on the host) {numpy_s:.2f} s, both with the "
+        f"host's pose chaining; equal exactly: {equal}")
+    if not equal:
+        raise AssertionError("aggregate_map_cloud on the card differs from numpy's")
+    return {"scans": len(clouds), "points": points, "kept": len(ours), "card_s": card_s,
+            "numpy_s": numpy_s, "poses": source}
+
+
+def viz_phase(dev, card) -> dict:
+    """The map's files, the map cloud on the card, replay and viz_debug."""
+    import importlib.util
+
+    from pylidar_slam_tpu_torch import replay as treplay
+    from pylidar_slam_tpu_torch import run as trun
+    from pylidar_slam_tpu_torch.utils.io import read_poses_from_disk
+    from pylidar_slam_tpu_torch.viz import viz3d
+    out = {}
+    log_dir = ROOT / "build" / "chip_viz"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    argv = CLI_OVERRIDES + [f"log_dir={log_dir}", "num_workers=8", "save_map=true"]
+    t0 = time.perf_counter()
+    trun.main(argv)
+    run_s = time.perf_counter() - t0
+    cloud = viz3d.read_ply(str(log_dir / "synth_00_map.ply"))
+    html = (log_dir / "synth_00_map.html").read_text()
+    n_html = json.loads(re.search(r"const META = (\{.*?\});", html).group(1))["n"]
+    views = sorted(p.name for p in log_dir.glob("synth_00_map_*.png"))
+    with_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"[viz] {card}: python -m pylidar_slam_tpu_torch.run {' '.join(argv)}: {run_s:.1f} s; "
+        f"synth_00_map.ply {len(cloud)} points, synth_00_map.html {n_html} points, PNG views "
+        f"{views} (matplotlib {'present' if with_mpl else 'absent: views skipped'})")
+    if not (len(cloud) > 10000 and n_html == len(cloud) and np.all(np.isfinite(cloud))):
+        raise AssertionError(f"save_map: {len(cloud)} PLY points, {n_html} in the HTML file")
+    if bool(views) != with_mpl:
+        raise AssertionError(f"save_map: views {views} with matplotlib {with_mpl}")
+    out["save_map"] = {"seconds": run_s, "points": len(cloud), "views": views}
+
+    # replay: the whole window (bit for bit the run's poses), then 40 frames
+    lc_state = log_dir / "loop_closure_synth_00.npz"
+    args = ["--root_dir", str(log_dir), "--sequence", "synth_00",
+            "--html", str(log_dir / "replay.html")]
+    if lc_state.exists():
+        args += ["--lc_state", str(lc_state)]
+    t0 = time.perf_counter()
+    relative = treplay.main(args)
+    replay_s = time.perf_counter() - t0
+    same = bool(np.array_equal(ev.compute_absolute_poses(relative),
+                               read_poses_from_disk(str(log_dir / "synth_00.poses.txt"))))
+    window = treplay.main(["--root_dir", str(log_dir), "--sequence", "synth_00",
+                           "--num_frames", str(REPLAY_WINDOW)])
+    rows = np.loadtxt(log_dir / "replay_synth_00.poses.txt").shape[0]
+    log(f"[viz] {card}: replay of the whole window ({len(relative)} frames, {replay_s:.1f} s, "
+        f"--lc_state {lc_state.exists()}): poses equal to the run's bit for bit: {same}; "
+        f"--num_frames {REPLAY_WINDOW}: {len(window)} poses, {rows} rows written")
+    if not same:
+        raise AssertionError("replay: the poses differ from the run's")
+    if not (len(window) == rows == REPLAY_WINDOW):
+        raise AssertionError(f"replay --num_frames {REPLAY_WINDOW}: {len(window)} poses")
+    out["replay"] = {"seconds": replay_s, "frames": len(relative), "bit_identical": same,
+                     "window": len(window)}
+    out["map_cloud"] = _map_cloud_check(dev, card)
+
+    # viz_debug: the aggregated champion over 3 frames writes its PNGs
+    loader, frames = load_frames(dict(acceptance.SEQ_KW, num_frames=VIZ_DEBUG_FRAMES))
+    debug_dir = ROOT / "build" / "chip_viz_debug"
+    shutil.rmtree(debug_dir, ignore_errors=True)
+    debug_dir.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(debug_dir)  # viz_debug writes under ./viz_debug
+    try:
+        cfg = dataclasses.replace(acceptance.champion_configs()["aggregated"], batch_size=1,
+                                  viz_debug=True)
+        run_sequence(cfg, loader, frames, dev)
+    finally:
+        os.chdir(cwd)
+    pngs = sorted(p.name for p in (debug_dir / "viz_debug").glob("*.png"))
+    log(f"[viz] viz_debug over {VIZ_DEBUG_FRAMES} frames: {pngs}")
+    if len(pngs) != VIZ_DEBUG_FRAMES - 1:
+        raise AssertionError(f"viz_debug wrote {pngs}")
+    out["viz_debug"] = pngs
+    return out
+
+
+def only_parallel(dev, card) -> dict:
+    """`--only parallel`: the unsharded surfel champion, the parallel phase
+    and B2 at a rank's shard."""
+    loader, frames, next_frame = load_sequence()
+    odom, _ = surfel_phase(loader, frames, dev)
+    out = parallel_phase(loader, frames, dev, card, odom)
+    out["sharded_b2"] = sharded_b2(b2_inputs(odom, next_frame), card)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1669,7 +2085,7 @@ def main() -> int:
                         help="another checkout of the package (e.g. an earlier commit "
                              "unpacked by git archive) whose kernels are timed against "
                              "this one's; repeatable")
-    parser.add_argument("--only", choices=["posenet", "datasets"],
+    parser.add_argument("--only", choices=["posenet", "datasets", "parallel", "viz"],
                         help="build, then run this phase alone (a probe: no result line)")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
@@ -1688,8 +2104,9 @@ def main() -> int:
 
     build = phase("build", build_phase)
     if args.only:
-        result = phase(args.only, {"posenet": posenet_phase,
-                                   "datasets": datasets_phase}[args.only], dev, card)
+        result = phase(args.only, {"posenet": posenet_phase, "datasets": datasets_phase,
+                                   "parallel": only_parallel, "viz": viz_phase}[args.only],
+                       dev, card)
         (ROOT / "build" / f"chip_smoke_{args.only}.json").write_text(json.dumps(
             {"card": card, args.only: result, "seconds": seconds}, indent=1, default=str))
         log(f"[{args.only}] {card}: probe passed (no result line: the full run prints it)")
@@ -1712,6 +2129,9 @@ def main() -> int:
     ct_icp = phase("ct_icp", ct_icp_phase, rs_loader, rs_frames, dev, card)
     profiles = phase("profiles", profiles_phase, rs_loader, rs_frames, dev)
     datasets = phase("datasets", datasets_phase, dev, card)
+    parallel = phase("parallel", parallel_phase, loader, frames, dev, card, odom)
+    sharded = phase("sharded B2", sharded_b2, b2_in, card)
+    viz = phase("viz", viz_phase, dev, card)
     posenet = phase("posenet", posenet_phase, dev, card)
     times = phase("times", times_phase, b1_in, b2_in, lc_args, loader, frames, dev, card)
     compare = phase("compare", compare_phase, args.compare, b1_in, b2_in, card)
@@ -1723,7 +2143,7 @@ def main() -> int:
          "compare_b2": compare_b2, "aggregated": aggregated, "surfel": surfel,
          "highway": highway, "ct_icp": ct_icp, "profiles": profiles, "slam": slam,
          "cli": cli, "projective": projective_run, "voxel": voxel, "posenet": posenet,
-         "datasets": datasets,
+         "datasets": datasets, "parallel": parallel, "sharded_b2": sharded, "viz": viz,
          "times": times,
          "compare": compare, "seconds": seconds},
         indent=1, default=str))
@@ -1731,7 +2151,8 @@ def main() -> int:
                 "ct_icp": ct_icp["elastic"]["launches"],
                 **{name: run["launches"] for name, run in profiles.items()},
                 "kitti": datasets["runs"]["kitti"]["launches"],
-                "ct_icp_files": datasets["runs"]["ct_icp_files"]["launches"]}
+                "ct_icp_files": datasets["runs"]["ct_icp_files"]["launches"],
+                "multirun": parallel["multirun"]["launches"]}
 
     kernels = []
     for kname, run, result in (("assoc_gn", aggregated, compare_b1),
@@ -1750,7 +2171,15 @@ def main() -> int:
             kernels[-1]["launches_by_path"] = b1_paths
     lc_t = times["nn_argmin_loop_closure"]
     kernels[1]["launches_by_path"] = {"surfel": surfel["launches"],
-                                      "loop_closure": slam["batch1"]["b2_launches"]}
+                                      "loop_closure": slam["batch1"]["b2_launches"],
+                                      "sharded_surfel": parallel["sharded_surfel"]["launches"]}
+    sh_t = sharded["times"]
+    kernels[1]["sharded_surfel_shape"] = {
+        "m": sharded["compare"]["m"], "v": sharded["compare"]["v"], "ms": sh_t["wall_ms"],
+        "device_ms": sh_t["device"]["ms"], "plain_ms": sh_t["plain_ms"],
+        "bound_ms": sh_t["bound_ms"], "bound_by": sh_t["bound_by"],
+        "roofline_share": sh_t["roofline_share"], "library_ms": sh_t["library_ms"],
+        "max_abs_err": sharded["compare"]["max_abs_err"]}
     kernels[1]["active_launches_by_path"] = {
         "surfel": surfel["active_launches"], "loop_closure": slam["batch1"]["b2_active_launches"]}
     kernels[1]["loop_closure_shape"] = {

@@ -9,8 +9,11 @@ never ``jax``; only the tests import both.
 odometry with the aggregated map, on the fused window-association +
 normal-equation kernel in CUDA (``ops.kernels.assoc_gn``), and with the
 surfel ("kdtree") map, on the exact 1-NN kernel in CUDA
-(``ops.kernels.nn_argmin``).  Branches not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+(``ops.kernels.nn_argmin``).  ``parallel`` runs the point-sharded surfel
+odometry and data- and tensor-parallel training over ``torch.distributed``
+ranks; ``viz`` writes the map's PLY, views and HTML viewer.  Only what
+ROADMAP.md leaves out (the tunnel's upload formats) raises
+``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

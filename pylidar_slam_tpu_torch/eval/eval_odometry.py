@@ -7,11 +7,13 @@ identical).
   trace-acos, translation norm, averaged.
 * ATE/ARE: mean +- std of per-frame relative translation/rotation diffs.
 * ``OdometryResults`` writes ``metrics.yaml`` and the ``poses.txt`` files
-  without PyYAML or pandas, in the layouts those libraries write; the
-  trajectory plots need matplotlib and are not drawn (ROADMAP.md A.19).
+  without PyYAML or pandas, in the layouts those libraries write, and the
+  trajectory plots with matplotlib where it imports (one log line where
+  it does not).
 """
 from __future__ import annotations
 
+import importlib.util
 import logging
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
@@ -159,6 +161,29 @@ def write_poses(path: str, poses: np.ndarray) -> None:
     write_csv(path, [str(i) for i in range(12)], flat.tolist())
 
 
+def draw_trajectory_files(xs: list, ys: list, output_file: str,
+                          labels: Optional[list] = None) -> bool:
+    """2D trajectory plots (matplotlib, headless).  Without matplotlib, logs
+    one line and draws nothing; returns whether the file was drawn."""
+    if importlib.util.find_spec("matplotlib") is None:
+        logger.info("Trajectory plots need matplotlib: %s not drawn", output_file)
+        return False
+    # a Figure of its own, not pyplot's global state: job threads draw at once
+    from matplotlib.figure import Figure
+    fig = Figure(figsize=(10.0, 10.0))
+    axes = fig.add_subplot()
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        label = labels[i] if labels else None
+        axes.plot(x, y, linewidth=2, label=label)
+    axes.set_xlabel("x[m]")
+    axes.set_ylabel("y[m]")
+    if labels:
+        axes.legend(loc="lower left")
+    axes.axis("equal")
+    fig.savefig(output_file)
+    return True
+
+
 class OdometryResults:
     """Aggregates sequence results: metrics.yaml and the poses files."""
 
@@ -190,7 +215,9 @@ class OdometryResults:
 
         absolute_pred = compute_absolute_poses(relative_prediction)
         write_poses(str(self.log_dir_path / f"{sequence_id}.poses.txt"), absolute_pred)
-        logger.info("Trajectory plots need matplotlib: not drawn (ROADMAP.md A.19)")
+        draw_trajectory_files([absolute_pred[:, 0, 3]], [absolute_pred[:, 1, 3]],
+                              str(self.log_dir_path / f"trajectory_{sequence_id}.png"),
+                              labels=["prediction"])
 
         if with_gt:
             absolute_gt = compute_absolute_poses(relative_ground_truth)
@@ -208,6 +235,11 @@ class OdometryResults:
                 self.metrics[sequence_id]["nsecs_per_frame"] = \
                     float(elapsed / absolute_gt.shape[0])
             self.save_metrics()
+            draw_trajectory_files(
+                [absolute_pred[:, 0, 3], absolute_gt[:, 0, 3]],
+                [absolute_pred[:, 1, 3], absolute_gt[:, 1, 3]],
+                str(self.log_dir_path / f"trajectory_{sequence_id}_with_gt.png"),
+                labels=["prediction", "GT"])
 
     def _add_mean_metrics(self):
         # each key averaged over the sequences that report it (short

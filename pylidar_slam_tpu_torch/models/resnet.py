@@ -12,7 +12,8 @@ leaves the same running statistics:
 * ``BatchNorm2d`` normalizes with the biased batch variance taken as
   E[x^2] - E[x]^2 (clamped at 0) and moves its running mean and variance by
   ``ra = 0.9 ra + 0.1 batch`` with that same biased variance (torch's
-  ``nn.BatchNorm2d`` keeps the unbiased one);
+  ``nn.BatchNorm2d`` keeps the unbiased one); under data parallelism the
+  batch is the global batch, whose slices the ranks of its ``group`` hold;
 * convolutions draw lecun-normal weights (a normal truncated at two
   standard deviations, variance 1 / fan_in), as ``flax.linen.Conv``.
 """
@@ -24,6 +25,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.nn.functional import all_reduce
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -60,21 +62,36 @@ def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0
 
 
 class BatchNorm2d(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
+
+    With a data-parallel process ``group`` set, each rank holds a slice of
+    the batch, and the statistics are those of the whole batch: the sums of
+    x and x^2 and the count are all-reduced over the group (autograd
+    carries the all-reduce) before E[x^2] - E[x]^2, as the JAX package's
+    jit over a sharded global batch computes them."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))  # flax "scale"
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and self.group is not None:
+            count = torch.full((1,), x.numel() / x.shape[1], dtype=x.dtype, device=x.device)
+            sums = all_reduce(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                                         count]), group=self.group)
+            c = x.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        elif self.training:
             mean = x.mean(dim=(0, 2, 3))
             var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.training:
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)

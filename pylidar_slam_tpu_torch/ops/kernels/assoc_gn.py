@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from pylidar_slam_tpu_torch.ops import optimization
+from pylidar_slam_tpu_torch.ops.kernels.cuda_build import LAUNCH_LOCK
 
 NUM_OUT = 30
 SCHEME_IDS = {"least_square": 0, "default": 0, "huber": 1, "exp": 2,
@@ -158,9 +159,11 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _counter(device_index: int) -> torch.Tensor:
-    """The kernel's last-block ticket counter on a device: zeroed once here,
-    and left at 0 by every pass (the port runs one stream per device)."""
+def _counter(device_index: int, stream: int) -> torch.Tensor:
+    """The kernel's last-block ticket counter of one stream of a device:
+    zeroed once here, on that stream, and left at 0 by every pass.  Passes
+    on one stream never overlap; two streams (the CLI's parallel jobs) each
+    draw their tickets from a counter of their own."""
     return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", device_index))
 
 
@@ -213,17 +216,19 @@ def assoc_gn(timg: torch.Tensor, model_xyz: torch.Tensor,
     partials = torch.empty(lib.assoc_gn_partials_size(h, w),
                            dtype=torch.float32, device=timg.device)
     out = torch.empty(NUM_OUT, dtype=torch.float32, device=timg.device)
-    counter = _counter(_device_index(timg.device))
+    stream = torch.cuda.current_stream(timg.device)
+    counter = _counter(_device_index(timg.device), stream.cuda_stream)
     err = lib.assoc_gn_launch(
         timg.data_ptr(), model_xyz.data_ptr(), model_normal.data_ptr(),
         model_valid.data_ptr(), h, w, int(wr), int(wc),
         float(max_nd) * float(max_nd), SCHEME_IDS[scheme], float(sigma),
         float(sigma) ** 2, float(plane_gate), float(eps),
         partials.data_ptr(), counter.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(timg.device).cuda_stream)
+        stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"assoc_gn launch failed with cudaError_t {err}")
-    assoc_gn.launches += 1
+    with LAUNCH_LOCK:  # job threads launch concurrently
+        assoc_gn.launches += 1
     return out
 
 

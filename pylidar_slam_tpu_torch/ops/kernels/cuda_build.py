@@ -9,11 +9,16 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import threading
 from pathlib import Path
 
 from pylidar_slam_tpu_torch.utils.build import BuildError, build_shared_library
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
+
+# Guards the wrappers' launch counts (``assoc_gn.launches``,
+# ``nn_argmin.launches``), which threads of one process bump concurrently.
+LAUNCH_LOCK = threading.Lock()
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC",

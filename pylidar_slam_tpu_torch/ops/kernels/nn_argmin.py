@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from pylidar_slam_tpu_torch.ops.kernels.cuda_build import LAUNCH_LOCK
+
 PLAIN_CHUNK = 1024  # model rows per step of the plain version
 
 
@@ -137,7 +139,8 @@ def nn_argmin(queries: torch.Tensor, model: torch.Tensor,
         sq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nn_argmin launch failed with cudaError_t {err}")
-    nn_argmin.launches += 1
+    with LAUNCH_LOCK:  # job threads launch concurrently
+        nn_argmin.launches += 1
     return idx, sq
 
 

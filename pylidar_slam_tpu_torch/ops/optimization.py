@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from pylidar_slam_tpu_torch.ops import rotation, se3
 
@@ -187,26 +188,44 @@ class GNResult(NamedTuple):
     singular: torch.Tensor  # () bool: hit a singular 6x6 system
 
 
+def normal_equations(res: torch.Tensor, jac: torch.Tensor, weights: torch.Tensor,
+                     group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(H (6, 6), g (6,), loss) of the weighted residuals (N,) and Jacobian
+    (N, 6).  With a process `group`, each rank holds a slice of the points
+    and the partial sums are added over the group's ranks by one all-reduce,
+    so every rank ends with the same system."""
+    wres = res * weights
+    wjac = jac * weights[:, None]
+    h = torch.sum(wjac[:, :, None] * wjac[:, None, :], dim=0)
+    g = torch.sum(wjac * wres[:, None], dim=0)
+    loss = torch.sum(wres * wres)
+    if group is not None:  # one all-reduce of the packed (36 + 6 + 1) sums
+        flat = torch.cat([h.reshape(-1), g, loss.reshape(1)])
+        dist.all_reduce(flat, group=group)
+        h, g, loss = flat[:36].reshape(6, 6), flat[36:42], flat[42]
+    return h, g, loss
+
+
 def gauss_newton_step(res: torch.Tensor, jac: torch.Tensor,
                       weights: torch.Tensor,
                       det_threshold: float = 1.0e-7,
                       damping: float = 0.0,
                       prior_res: Optional[torch.Tensor] = None,
-                      prior_weight: Optional[torch.Tensor] = None):
+                      prior_weight: Optional[torch.Tensor] = None,
+                      group=None):
     """One weighted GN step from residuals (N,), Jacobian (N, 6), weights
-    (N,).  The optional pose priors (``add_pose_prior``) join first; then
-    `damping` > 0 adds the Levenberg term ``damping * trace(H) / 6 * I``.
-    Returns (dx (6,), loss, singular)."""
-    wres = res * weights
-    wjac = jac * weights[:, None]
-    h = torch.sum(wjac[:, :, None] * wjac[:, None, :], dim=0)
-    g = torch.sum(wjac * wres[:, None], dim=0)
+    (N,).  With a process `group`, the rows are this rank's slice and the
+    partial normal equations are all-reduced first (``normal_equations``).
+    The optional pose priors (``add_pose_prior``) join next, as global
+    terms; then `damping` > 0 adds the Levenberg term
+    ``damping * trace(H) / 6 * I``.  Returns (dx (6,), loss, singular)."""
+    h, g, loss = normal_equations(res, jac, weights, group)
     h, g = add_pose_prior(h, g, prior_res, prior_weight)
     if damping > 0.0:
         h = h + (damping * torch.trace(h) / 6.0) * torch.eye(
             6, dtype=h.dtype, device=h.device)
     dx, singular = solve_normal_equations(h, g, det_threshold)
-    return dx, torch.sum(wres * wres), singular
+    return dx, loss, singular
 
 
 def gauss_newton(x0: torch.Tensor, res_fun, jac_fun, max_iters: int = 10,

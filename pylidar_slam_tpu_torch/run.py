@@ -7,19 +7,29 @@ Usage (the override grammar of ``run.py``, composing the shared
         dataset.num_frames=130 dataset.speed=1.3 log_dir=/tmp/run
 
 runs on the CUDA card (``device=cpu`` runs it on the CPU).  ``-m`` sweeps
-the cartesian product of comma-separated values, one job after another,
-each in a numbered directory under ``log_dir``.
+the cartesian product of comma-separated values, each job in a numbered
+directory under ``log_dir``; ``parallel_jobs=N`` (``auto``: one per card)
+runs N jobs at a time in threads, job i on card ``i % device_count``, each
+thread on a CUDA stream of its own.  Point-sharded surfel odometry runs
+one process per rank:
+
+    torchrun --nproc_per_node S -m pylidar_slam_tpu_torch.run ... \
+        slam.odometry.shard_points=S
 """
 from __future__ import annotations
 
+import concurrent.futures
 import datetime
 import itertools
 import logging
 import sys
 from pathlib import Path
 
+import torch
+
 from pylidar_slam_tpu_torch.config import compose, dataclass_from_dict, dump_yaml
-from pylidar_slam_tpu_torch.slam.odometry_runner import SLAMRunner, SLAMRunnerConfig
+from pylidar_slam_tpu_torch.slam.odometry_runner import (SLAMRunner, SLAMRunnerConfig,
+                                                         resolve_device)
 from pylidar_slam_tpu_torch.utils.build import REPO_ROOT
 
 CONFIG_DIR = REPO_ROOT / "config"
@@ -55,35 +65,54 @@ def _split_sweep(argv: list):
     return keys, value_sets, fixed
 
 
+def _run_on_card(cfg: dict, index: int):
+    """Runs the job on card `index % device_count` under a CUDA stream of
+    its own (two job threads on one card then do not serialize on the
+    default stream); a CPU job runs as it is."""
+    if resolve_device(cfg.get("device")).type != "cuda":
+        return run_slam(cfg)
+    device = torch.device("cuda", index % torch.cuda.device_count())
+    cfg = dict(cfg, device=str(device))
+    with torch.cuda.device(device), torch.cuda.stream(torch.cuda.Stream(device)):
+        return run_slam(cfg)
+
+
 def run_multirun(config_dir: Path, argv: list):
     """The `-m` sweep: one job per combination of the comma-separated
-    override values, run in turn, each in `log_dir`/<job index>."""
+    override values, each in `log_dir`/<job index>; `parallel_jobs=N|auto`
+    runs min(N, jobs) of them at a time (``_run_on_card``)."""
     keys, value_sets, fixed = _split_sweep(argv)
     stamp = datetime.datetime.now().strftime("%Y-%m-%d/%H-%M-%S")
     sweep_root = Path(".outputs/multirun") / stamp
+    parallel_jobs = 1
     for ov in list(fixed):
         if ov.startswith("log_dir="):
             sweep_root = Path(ov.split("=", 1)[1])
             fixed.remove(ov)
         elif ov.startswith("parallel_jobs="):
             value = ov.split("=", 1)[1]
+            parallel_jobs = 0 if value == "auto" else int(value)
             fixed.remove(ov)
-            if value != "1":
-                raise NotImplementedError(
-                    f"parallel_jobs={value}: jobs on several cards are not ported "
-                    f"(one card): ROADMAP.md A.18")
 
     combos = list(itertools.product(*value_sets)) if keys else [()]
     print(f"[multirun] {len(combos)} jobs -> {sweep_root}")
-    out = []
-    for idx, combo in enumerate(combos):
+
+    def one_job(idx, combo, parallel):
         job_overrides = fixed + [f"{k}={v}" for k, v in zip(keys, combo)]
         job_dir = sweep_root / str(idx)
         cfg = compose(str(config_dir), "slam", job_overrides + [f"log_dir={job_dir}"])
         _stamp_hydra_dir(str(job_dir), job_overrides)
         print(f"[multirun] job {idx}: {' '.join(job_overrides)}")
-        out.append(run_slam(cfg))
-    return out
+        return _run_on_card(cfg, idx) if parallel else run_slam(cfg)
+
+    if parallel_jobs == 1 or len(combos) == 1:
+        return [one_job(i, c, False) for i, c in enumerate(combos)]
+    devices = max(torch.cuda.device_count(), 1)
+    n_workers = min(devices if parallel_jobs == 0 else parallel_jobs, len(combos))
+    print(f"[multirun] {n_workers} parallel workers over {devices} device(s)")
+    with concurrent.futures.ThreadPoolExecutor(n_workers) as pool:
+        futures = [pool.submit(one_job, i, c, True) for i, c in enumerate(combos)]
+        return [f.result() for f in futures]
 
 
 def main(argv=None):

@@ -25,6 +25,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pylidar_slam_tpu_torch.config import MISSING, dataclass_from_dict
 from pylidar_slam_tpu_torch.ops import bev, optimization, projection, se3
@@ -130,9 +131,12 @@ class ICPFrameToModelConfig(OdometryConfig):
     # Frames per batched device run; B > 1 chains the constant-velocity
     # priors on the device.
     batch_size: int = 1
-    # Accepted so configs carry over.  shard_points > 1 raises (ROADMAP.md
-    # A.13).  The port uploads from pinned memory without an uploader
-    # thread and keeps no fetch lag, so the other two change nothing.
+    # kdtree (surfel) mode: shard the ICP targets over this many ranks of
+    # the torch.distributed process group (torchrun); each rank searches its
+    # block against the replicated map and the 6x6 normal equations are
+    # all-reduced.  0/1 = one rank.  The port uploads from pinned memory
+    # without an uploader thread and keeps no fetch lag, so the other two
+    # are accepted so configs carry over, and change nothing.
     shard_points: int = 0
     async_upload: bool = True
     batch_results_lag: int = 4
@@ -242,6 +246,22 @@ def make_icp_frame_step(proj: projection.SphericalProjection,
     return step, first_frame, build_vmap_from_points
 
 
+def _shard_group(n_shard: int):
+    """The process group of `shard_points` = n_shard: None for n_shard <= 1;
+    else the first n_shard ranks of the initialized default group (ranks
+    beyond them register alone).  Raises when fewer ranks are up."""
+    if n_shard <= 1:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    assert_debug(world >= n_shard,
+                 f"shard_points={n_shard} but only {world} rank(s) in the process "
+                 f"group (run under torchrun --nproc_per_node {n_shard})")
+    if world == n_shard:
+        return dist.group.WORLD
+    group = dist.new_group(list(range(n_shard)))  # collective: every rank calls it
+    return group if dist.get_rank() < n_shard else None
+
+
 # ----------------------------------------------------------------------------
 # Host-side odometry module (data_dict protocol)
 # ----------------------------------------------------------------------------
@@ -280,13 +300,9 @@ class ICPFrameToModel:
             f"upload_format='{fmt}' has no effect with "
             f"local_map.type=projective_local_map (it consumes vertex maps, "
             f"not host point uploads) -- use another map, or drop the override")
-        if int(config.shard_points or 0) > 1:
-            raise NotImplementedError(
-                "shard_points is not ported yet: ROADMAP.md A.13")
         assert_debug(str(config.pose_type or "") in POSE_TYPES,
                      f"Unknown pose_type '{config.pose_type}'")
-        if bool(config.viz_debug):
-            raise NotImplementedError("viz_debug is ROADMAP.md A.19")
+        self._viz = None  # the ImageVisualizer of viz_debug, made on first use
         align_cfg = config.alignment if isinstance(config.alignment, dict) else {}
         gn_cfg = dataclass_from_dict(
             GaussNewtonConfig, align_cfg.get("gauss_newton_config", {}))
@@ -324,6 +340,7 @@ class ICPFrameToModel:
             self.local_map_size = int(self._surfel_cfg.local_map_size)
             self._step, self._first, self._batch_step = \
                 sm.make_surfel_icp_frame_step(
+                    group=_shard_group(int(config.shard_points or 0)),
                     proj=projector,
                     map_cfg=self._surfel_cfg,
                     reassoc_every=int(config.reassoc_every or 1),
@@ -401,6 +418,25 @@ class ICPFrameToModel:
         self._iter = 0
         self.last_rpose_device: Optional[torch.Tensor] = None
         self._boot_cloud: Optional[np.ndarray] = None
+
+    def _viz_update(self):
+        """With `viz_debug`, the local map's range image (aggregated and
+        projective maps) colormapped to PNGs under ./viz_debug, and to a cv2
+        window where one can open.  Debug only: each update fetches the
+        model image from the device."""
+        if not bool(self.config.viz_debug):
+            return
+        if self._viz is None:
+            from pylidar_slam_tpu_torch.viz.visualizer import ImageVisualizer
+            self._viz = ImageVisualizer(output_dir="viz_debug", use_window=True)
+        st = self._map_state
+        img = None
+        if self._mode == "aggregated_local_map":
+            img = st.rng.cpu().numpy()
+        elif self._mode == "projective_local_map":
+            img = torch.linalg.vector_norm(st.vmaps[0], dim=-1).cpu().numpy()
+        if img is not None:
+            self._viz.update(img, tag="model_range")
 
     # -- EI bootstrap -------------------------------------------------------
 
@@ -598,6 +634,7 @@ class ICPFrameToModel:
         data_dict[self.pointcloud_key()] = \
             self._input_cloud(data_dict[self.config.data_key])[:, :3]
         self._iter += 1
+        self._viz_update()
 
     def _started(self, data_dict: dict):
         """Frame 0 is in the map: identity pose, and its cloud kept for the
@@ -633,6 +670,7 @@ class ICPFrameToModel:
         data_dict[self.relative_pose_key()] = result.pose_matrix
         data_dict[self.pointcloud_key()] = vmap
         self._iter += 1
+        self._viz_update()
 
     def _buffer_frame(self, data_dict: dict):
         """Batched path: keeps the frame as a host upload buffer; the whole
@@ -691,6 +729,7 @@ class ICPFrameToModel:
         self._params_log.append(params)
         if self.emit_batch_poses:
             self._pending_params.append(copy_to_host_async(params))
+        self._viz_update()  # one model render per flush
 
     def _flush_remainder(self):
         """Processes a final partial buffer with the per-frame step."""

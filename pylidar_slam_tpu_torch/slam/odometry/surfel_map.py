@@ -16,6 +16,10 @@ map: the JAX early-exit ``while_loop`` is a fixed ``max_num_alignments``
 trip whose carries freeze once the stop condition holds, and each
 ``lax.cond`` computes both branches and selects.  The exact search takes
 the loop's condition as a device flag, so a frozen trip costs no NN pass.
+
+With ``shard_points`` = S ranks, each rank registers a block of the targets
+and every GN trip all-reduces the 6x6 normal equations (gloo, which the
+card's ranks share, stages each one through the host).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pylidar_slam_tpu_torch.ops import geometry, projection, se3, voxel
 from pylidar_slam_tpu_torch.ops.hash_nn import (build_hash_grid, hash_grid_knn,
@@ -36,6 +41,7 @@ from pylidar_slam_tpu_torch.ops.optimization import (gauss_newton_step,
 from pylidar_slam_tpu_torch.slam.odometry.aggregated_map import (
     _gather_image, dequant_upload, rasterize_encoded, select_state)
 from pylidar_slam_tpu_torch.slam.odometry.local_map import LocalMapConfig
+from pylidar_slam_tpu_torch.utils import assert_debug
 
 
 @dataclass
@@ -159,7 +165,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
                                upload_quantization: float = 0.0,
                                reassoc_every: int = 1,
                                reassoc_motion_m: float = 0.0,
-                               shard_mesh=None):
+                               group=None):
     """Builds (step, first_frame, batch_step) for the surfel-ring odometry.
 
     `max_num_alignments` GN iterations; the nearest neighbours are searched
@@ -167,11 +173,14 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
     whenever the pose moved more than that since the last search.  In
     between, the held pairs are reused with distances recomputed at the
     current pose.
+
+    With a process `group` of S ranks, the ICP targets are sharded: the map
+    state and the pose are replicated, rank r registers the contiguous block
+    ``targets[r*M/S:(r+1)*M/S]``, and each GN iteration all-reduces the
+    partial normal equations once, so every rank computes the same pose
+    (and the same stop condition).  The match count is all-reduced once per
+    registration.
     """
-    if shard_mesh is not None:
-        raise NotImplementedError(
-            "sharding the ICP targets over several devices is not ported "
-            "yet: ROADMAP.md A.18")
     if upload_quantization > 0.0:
         raise NotImplementedError(
             "int16-quantized uploads are left out of the port (ROADMAP.md, "
@@ -198,6 +207,11 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
         f"hash_voxel {hash_voxel} < 2 * max_neighbor_dist {2 * max_nd}: the "
         f"2x2x2 probe would miss in-gate neighbours (ops/hash_nn.py)")
     reanchor_dist = float(map_cfg.reanchor_dist)
+    if group is not None:
+        n_shard, shard = dist.get_world_size(group), dist.get_rank(group)
+        assert_debug(m_targets % n_shard == 0,
+                     f"target_samples {m_targets} must divide over {n_shard} ranks")
+        block = slice(shard * m_targets // n_shard, (shard + 1) * m_targets // n_shard)
 
     def build_grid(points: torch.Tensor, valid: torch.Tensor):
         """Bucket grid + dense packing of the map, built once per insert."""
@@ -277,7 +291,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
                                      eps=gn_eps)
             weights = torch.where(ok, weights, torch.zeros_like(weights))
             dx, loss_k, singular = gauss_newton_step(res, jac, weights,
-                                                     damping=damping)
+                                                     damping=damping, group=group)
             dn = torch.linalg.vector_norm(dx)
             apply = (dn >= threshold_delta_pose) & (~singular)
             new_t = se3.normalize_pose_matrix(
@@ -292,6 +306,10 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
             it = it + active.to(torch.int32)
             loss = torch.where(active, loss_k, loss)
             matches = torch.where(active, ok.sum().to(torch.int32), matches)
+        if group is not None:
+            # every rank froze at the same trip: the sum of the ranks' counts
+            # is that trip's count over all targets
+            dist.all_reduce(matches, group=group)
         return t, it, loss, matches
 
     def insert(state: SurfelMapState, points: torch.Tensor, mask: torch.Tensor,
@@ -357,6 +375,8 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
         points, mask, _ = dequant_upload(points, mask, proj)
         targets, _, t_valid = _grid_sample_fixed(
             points, mask, float(map_cfg.target_voxel_size), m_targets)
+        if group is not None:
+            targets, t_valid = targets[block], t_valid[block]
 
         # Registration runs in the anchor frame; init and result convert
         # through anchor_from_cur (cur = the previous frame).

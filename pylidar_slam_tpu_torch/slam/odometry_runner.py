@@ -9,6 +9,12 @@ Frames are loaded by background threads one step ahead of the device.
 The run goes on the card unless ``device=cpu`` is asked for: ``cuda``,
 ``gpu`` and the shared config's ``tpu`` all name the card, and without one
 the runner raises instead of carrying on on the CPU.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the runner joins the process group
+that the environment describes, each rank on ``cuda:(LOCAL_RANK %
+device_count)``, for ``slam.odometry.shard_points``; every rank runs the
+pipeline and only rank 0 writes the run's files.  ``save_map`` writes the
+registered map as a PLY, its rendered views and an interactive HTML viewer.
 """
 from __future__ import annotations
 
@@ -28,8 +34,11 @@ import torch
 from pylidar_slam_tpu_torch.config import dataclass_from_dict, dump_yaml
 from pylidar_slam_tpu_torch.dataset import DATASET
 from pylidar_slam_tpu_torch.eval.eval_odometry import OdometryResults
+from pylidar_slam_tpu_torch.parallel.mesh import init_from_env, is_main_rank, rank_device
 from pylidar_slam_tpu_torch.slam.slam import SLAM, SLAMConfig
 from pylidar_slam_tpu_torch.utils import assert_debug
+from pylidar_slam_tpu_torch.viz import viz3d
+from pylidar_slam_tpu_torch.viz.html_viewer import write_html_viewer
 
 logger = logging.getLogger(__name__)
 
@@ -67,7 +76,7 @@ class SLAMRunnerConfig:
     fail_dir: str = ""
     move_if_fail: bool = False
     eval_mode: str = "normal"
-    # the registered map's PLY and rendered views (ROADMAP.md A.19)
+    # the registered map's PLY, rendered views and HTML viewer
     save_map: bool = False
     save_map_voxel_size: float = 0.3
 
@@ -147,10 +156,10 @@ class SLAMRunner:
         if isinstance(config, dict):
             config = dataclass_from_dict(SLAMRunnerConfig, config)
         self.config = config
-        if bool(config.save_map):
-            raise NotImplementedError("save_map (the map's PLY and rendered views) "
-                                      "is not ported yet: ROADMAP.md A.19")
         self.device = resolve_device(config.device)
+        if init_from_env(self.device):
+            self.device = rank_device(self.device)
+        self.is_main = is_main_rank()  # the rank that writes the run's files
         self.log_dir = Path(config.log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
 
@@ -162,8 +171,9 @@ class SLAMRunner:
         self.slam_config = dataclass_from_dict(SLAMConfig, dict(slam_cfg))
 
         # the composed config and the git hash, for reproducibility
-        (self.log_dir / "config.yaml").write_text(dump_yaml(
-            {"git_hash": _git_hash(), "config": _to_plain(config)}))
+        if self.is_main:
+            (self.log_dir / "config.yaml").write_text(dump_yaml(
+                {"git_hash": _git_hash(), "config": _to_plain(config)}))
 
     def load_slam_algorithm(self) -> SLAM:
         slam = SLAM(self.slam_config, projector=self.projector,
@@ -177,7 +187,8 @@ class SLAMRunner:
     def run_odometry(self) -> Dict[str, dict]:
         """Runs SLAM over all train sequences; returns metrics per sequence."""
         (datasets, names), _, _, _ = self.dataset_loader.sequences()
-        results = OdometryResults(str(self.log_dir)) if self.config.save_results else None
+        write = self.is_main and self.config.save_results
+        results = OdometryResults(str(self.log_dir)) if write else None
         all_metrics: Dict[str, dict] = {}
 
         for seq_name, dataset in zip(names, datasets):
@@ -186,6 +197,8 @@ class SLAMRunner:
             slam = self.load_slam_algorithm()
             start = time.time()
             frame_count = 0
+            map_clouds = [] if self.config.save_map and self.is_main else None
+            pc_key = self.dataset_loader.config.numpy_pc_key
             try:
                 workers = min(int(self.config.num_workers or 1),
                               self.dataset_loader.max_num_workers())
@@ -195,10 +208,14 @@ class SLAMRunner:
                                              transform=slam.host_prepare):
                     slam.process_next_frame(data_dict)
                     frame_count += 1
+                    if map_clouds is not None and data_dict.get(pc_key) is not None:
+                        pts = np.asarray(data_dict[pc_key], np.float32)[:, :3]
+                        map_clouds.append(pts[:: max(len(pts) // 20000, 1)])
             except (Exception, KeyboardInterrupt) as e:
                 # save the partial trajectory, then re-raise
                 logger.error("SLAM failed at frame %d of %s: %s", frame_count, seq_name, e)
-                self._dump_partial(slam, seq_name)
+                if self.is_main:
+                    self._dump_partial(slam, seq_name)
                 if self.config.move_if_fail and self.config.fail_dir:
                     self._move_to_fail_dir()
                 raise
@@ -216,6 +233,10 @@ class SLAMRunner:
                     all_metrics[seq_name] = dict(results.metrics[seq_name])
             logger.info("Sequence %s: %d frames in %.1fs (%.1f scans/s)", seq_name,
                         frame_count, elapsed, frame_count / max(elapsed, 1e-9))
+            if map_clouds and relative is not None:
+                self._save_map(seq_name, map_clouds, relative)
+            if not self.is_main:
+                continue
             if slam.backend is not None:
                 slam.dump_all_constraints(str(self.log_dir / f"constraints_{seq_name}"))
             if slam.loop_closure is not None and \
@@ -229,6 +250,27 @@ class SLAMRunner:
             if "AVG" in results.metrics:
                 all_metrics["AVG"] = results.metrics["AVG"]
         return all_metrics
+
+    def _save_map(self, seq_name: str, map_clouds: list, relative: np.ndarray):
+        """{seq}_map.ply, the rendered views ({seq}_map_*.png, with
+        matplotlib) and {seq}_map.html; the voxel dedupe runs on the run's
+        device.  A failure here is logged and never fails the run."""
+        try:
+            cloud = viz3d.aggregate_map_cloud(
+                map_clouds, relative, voxel_size=float(self.config.save_map_voxel_size),
+                device=self.device)
+            absolutes = [np.eye(4)]
+            for rel in relative[1:]:
+                absolutes.append(absolutes[-1] @ np.asarray(rel, np.float64))
+            absolutes = np.stack(absolutes)
+            viz3d.write_ply(str(self.log_dir / f"{seq_name}_map.ply"), cloud)
+            viz3d.render_map_views(str(self.log_dir / seq_name), cloud, absolutes)
+            write_html_viewer(str(self.log_dir / f"{seq_name}_map.html"), cloud,
+                              trajectory=absolutes, title=f"{seq_name} map")
+            logger.info("Saved %s map PLY + rendered views + HTML viewer (%d points)",
+                        seq_name, cloud.shape[0])
+        except Exception:  # viz never fails a run
+            logger.exception("Map dump failed for %s", seq_name)
 
     def _dump_partial(self, slam: SLAM, seq_name: str):
         try:

@@ -16,6 +16,14 @@ gives (the JAX package's order).
 The checkpoint (``{train_dir}/checkpoint.ckp``) is the port's own, a
 ``torch.save`` of the state dicts and counters; JAX weights enter through
 ``models.from_jax.load_jax_variables``.
+
+``data_parallel`` and ``tensor_parallel`` > 1 run one step on the global
+batch across the ranks of a ``torch.distributed`` process group (under
+``torchrun``, or one a caller set up), as the JAX package's jit over a
+sharded batch does: each dp rank takes its contiguous slice of the same
+batch, BatchNorm takes its statistics over the whole batch, gradients are
+averaged over dp, and ``tensor_parallel`` splits the weights over ``tp``
+(``parallel.tp``).  With one rank either is the plain step.
 """
 from __future__ import annotations
 
@@ -31,9 +39,14 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pylidar_slam_tpu_torch.config import dump_yaml
+from pylidar_slam_tpu_torch.models.resnet import BatchNorm2d
 from pylidar_slam_tpu_torch.ops import projection
+from pylidar_slam_tpu_torch.parallel import tp as tpm
+from pylidar_slam_tpu_torch.parallel.mesh import (init_from_env, is_main_rank, make_mesh,
+                                                  rank_device)
 from pylidar_slam_tpu_torch.slam.odometry_runner import resolve_device
 from pylidar_slam_tpu_torch.training import loss_modules
 from pylidar_slam_tpu_torch.training.prediction_modules import (
@@ -62,8 +75,8 @@ class ATrainerConfig:
     do_eval: bool = True
     average_meter_frequency: int = 20
     num_points_padded: int = 131072
-    data_parallel: bool = False  # ROADMAP.md A.18
-    tensor_parallel: int = 1  # ROADMAP.md A.18
+    data_parallel: bool = False  # the batch split over the ranks (dp)
+    tensor_parallel: int = 1  # the weights split over this many ranks (tp)
     seed: int = 0
     # TensorBoard logging, when torch.utils.tensorboard imports: per-kind
     # frequencies; 0 disables a kind
@@ -71,7 +84,7 @@ class ATrainerConfig:
     tensorboard_scalar_frequency: int = 20
     tensorboard_histogram_frequency: int = 200
     tensorboard_image_frequency: int = 500
-    visualize: bool = False  # live image viewer: ROADMAP.md A.19
+    visualize: bool = False  # range images as PNGs under train_dir/viz (+ cv2 window)
 
 
 class AverageMeter:
@@ -151,16 +164,22 @@ class PoseNetTrainer:
     def __init__(self, config: ATrainerConfig, prediction_config: PredictionConfig,
                  loss_config: Any, dataset_loader,
                  proj: Optional[projection.SphericalProjection] = None):
-        if bool(config.data_parallel) or int(config.tensor_parallel or 1) > 1:
-            raise NotImplementedError(
-                f"data_parallel={config.data_parallel}, tensor_parallel="
-                f"{config.tensor_parallel}: training across several cards is not "
-                f"ported: ROADMAP.md A.18")
-        if bool(config.visualize):
-            raise NotImplementedError("visualize (the live image viewer) is not ported: "
-                                      "ROADMAP.md A.19")
         self.config = config
         self.device = resolve_device(config.device)
+        self._mesh = None  # the dp (x tp) layout of a parallel step
+        self._split = None  # tp-split parameter names, once distributed
+        tp = max(1, int(config.tensor_parallel or 1))
+        if bool(config.data_parallel) or tp > 1:
+            if init_from_env(self.device):
+                self.device = rank_device(self.device)
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if tp > 1 and world > 1:
+                assert_debug(world % tp == 0,
+                             f"tensor_parallel={tp} does not divide {world} ranks")
+                self._mesh = make_mesh([("dp", world // tp), ("tp", tp)])
+            elif bool(config.data_parallel) and world > 1:
+                self._mesh = make_mesh([("dp", world)])
+        self._image_visualizer = None
         self.dataset_loader = dataset_loader
         self.proj = proj if proj is not None else dataset_loader.projector()
         self.prediction = PoseNetPredictionModule(prediction_config, seed=config.seed,
@@ -213,16 +232,27 @@ class PoseNetTrainer:
             writer.add_histogram(f"{prefix}/{name}", p.detach().cpu().numpy().ravel(), step)
 
     def _log_images(self, prefix: str, points: np.ndarray, masks: np.ndarray, step: int):
-        """Colormapped range images of the first window pair."""
+        """Colormapped range images of the first window pair: to TensorBoard,
+        and with `visualize` as PNGs under train_dir/viz (and a cv2 window
+        where one can open)."""
         writer = self._tensorboard()
-        if writer is None:
+        want_viz = bool(self.config.visualize)
+        if (writer is None and not want_viz) or not is_main_rank():
             return
         from pylidar_slam_tpu_torch.viz.color_map import tensor_to_image
         for si in range(min(2, points.shape[1])):
             vm = projection.build_vertex_map(torch.from_numpy(points[0, si]), self.proj,
                                              mask=torch.from_numpy(masks[0, si])).numpy()
-            img = tensor_to_image(np.linalg.norm(vm, axis=-1))
-            writer.add_image(f"{prefix}/vertex_map_{si}", img, step, dataformats="HWC")
+            rng_img = np.linalg.norm(vm, axis=-1)
+            if writer is not None:
+                writer.add_image(f"{prefix}/vertex_map_{si}", tensor_to_image(rng_img), step,
+                                 dataformats="HWC")
+            if want_viz:
+                if self._image_visualizer is None:
+                    from pylidar_slam_tpu_torch.viz.visualizer import ImageVisualizer
+                    self._image_visualizer = ImageVisualizer(
+                        output_dir=str(self.train_dir / "viz"), use_window=True)
+                self._image_visualizer.update(rng_img, tag=f"{prefix[1:]}_vm{si}")
 
     # ------------------------------------------------------------------
     # Initialization / checkpointing: {train_dir}/checkpoint.ckp and
@@ -245,24 +275,54 @@ class PoseNetTrainer:
         if ckpt.exists():
             self.load_checkpoint(str(ckpt))
             logger.info("Restored checkpoint at epoch %d", self.num_train_epochs)
-        (self.train_dir / "config.yaml").write_text(dump_yaml({
-            "git_hash": _git_hash(),
-            "trainer": _plain(self.config),
-            "prediction": _plain(self.prediction.config),
-            "loss": _plain(self.loss_config),
-            "projector": {"height": self.proj.height, "width": self.proj.width,
-                          "up_fov": self.proj.up_fov, "down_fov": self.proj.down_fov},
-        }))
+        if is_main_rank():
+            (self.train_dir / "config.yaml").write_text(dump_yaml({
+                "git_hash": _git_hash(),
+                "trainer": _plain(self.config),
+                "prediction": _plain(self.prediction.config),
+                "loss": _plain(self.loss_config),
+                "projector": {"height": self.proj.height, "width": self.proj.width,
+                              "up_fov": self.proj.up_fov, "down_fov": self.proj.down_fov},
+            }))
         logger.info("Training on %s", self.device)
 
+    def _named_trainable(self) -> list:
+        """(name, parameter) in the optimizer's order."""
+        return list(self.module.named_parameters()) + (
+            [("exp_s", self.exp_s)] if self.exp_s is not None else [])
+
     def _trainable(self) -> list:
-        return list(self.module.parameters()) + ([self.exp_s] if self.exp_s is not None else [])
+        return [p for _, p in self._named_trainable()]
+
+    def _whole_state(self):
+        """The module's and the optimizer's state dicts, with every
+        tp-split weight and its moments gathered whole (all ranks call
+        this), so the checkpoint is the one-rank layout."""
+        model, opt = self.module.state_dict(), self.optimizer.state_dict()
+        if not self._split:
+            return model, opt
+        group = self._mesh.groups["tp"]
+        model = {k: tpm.gather_slices(v, self._split[k][1], group) if k in self._split else v
+                 for k, v in model.items()}
+        named = self._named_trainable()
+        for idx, st in opt["state"].items():
+            name, param = named[idx]
+            if name in self._split:
+                dim = self._split[name][1]
+                opt["state"][idx] = {
+                    k: tpm.gather_slices(v, dim, group)
+                    if torch.is_tensor(v) and v.shape == param.shape else v
+                    for k, v in st.items()}
+        return model, opt
 
     def save_checkpoint(self):
+        model, opt = self._whole_state()
+        if not is_main_rank():
+            return
         torch.save({
-            "model": self.module.state_dict(),
+            "model": model,
             "exp_s": None if self.exp_s is None else self.exp_s.detach(),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": opt,
             "num_train_epochs": self.num_train_epochs,
             "train_iter": self.train_iter,
             "eval_iter": self.eval_iter,
@@ -298,8 +358,10 @@ class PoseNetTrainer:
             sigma=float(scheme_cfg.get("sigma", 0.5)))
 
     def _train_step(self, points, masks, gt):
-        """One step on device tensors; returns the loss and the logs, still
-        on the device."""
+        """One step on device tensors of the global batch; returns the loss
+        and the logs (over the global batch), still on the device."""
+        if self._mesh is not None:
+            return self._parallel_train_step(points, masks, gt)
         self.optimizer.zero_grad(set_to_none=True)
         loss, logs = self._loss_fn(points, masks, gt, True)
         loss.backward()
@@ -308,7 +370,91 @@ class PoseNetTrainer:
 
     @torch.no_grad()
     def _eval_step(self, points, masks, gt):
-        return self._loss_fn(points, masks, gt, False)
+        if self._mesh is None:
+            return self._loss_fn(points, masks, gt, False)
+        self._distribute()
+        loss, logs = self._loss_fn(*self._local_batch(points, masks, gt), False)
+        return self._global_mean(loss, logs)
+
+    # ------------------------------------------------------------------
+    # The parallel step: dp slices of the global batch, tp-split weights
+    # ------------------------------------------------------------------
+
+    def _distribute(self):
+        """Once, before the first parallel step (after any checkpoint or
+        carried weights are in): BatchNorm statistics over the dp group, and
+        with tp > 1 this rank's weight slices, the optimizer rebuilt over
+        them with its state sliced alike."""
+        if self._split is not None:
+            return
+        mesh = self._mesh
+        dp_group = mesh.groups["dp"] if mesh.shape["dp"] > 1 else None
+        for m in self.module.modules():
+            if isinstance(m, BatchNorm2d):
+                m.group = dp_group
+        self._split = {}
+        if mesh.shape.get("tp", 1) <= 1:
+            return
+        group = mesh.groups["tp"]
+        old = self._named_trainable()
+        old_state = [self.optimizer.state.get(p, {}) for _, p in old]
+        lr = self.optimizer.param_groups[0]["lr"]
+        self._split = tpm.shard_module(self.module, group)
+        self.optimizer = make_optimizer(self.config, self._trainable())
+        self.optimizer.param_groups[0]["lr"] = lr
+        for (name, param), (_, before), st in zip(self._named_trainable(), old, old_state):
+            if name in self._split:
+                dim = self._split[name][1]
+                st = {k: tpm.take_slice(v, dim, group)
+                      if torch.is_tensor(v) and v.shape == before.shape else v
+                      for k, v in st.items()}
+            if st:
+                self.optimizer.state[param] = st
+
+    def _local_batch(self, *batch):
+        """This dp rank's contiguous slice of each global-batch tensor."""
+        dp, index = self._mesh.shape["dp"], self._mesh.coords["dp"]
+        b = batch[0].shape[0]
+        assert_debug(b % dp == 0, f"batch {b} does not split over {dp} dp ranks")
+        return [t[index * b // dp:(index + 1) * b // dp] for t in batch]
+
+    def _global_mean(self, loss, logs):
+        """The loss and logs over the global batch: the mean of the ranks'
+        (the tp ranks of a dp slice hold the same values), one all-reduce."""
+        keys = list(logs)
+        flat = torch.stack([loss.detach()] + [logs[k].detach() for k in keys])
+        dist.all_reduce(flat)
+        flat = flat / dist.get_world_size()
+        return flat[0], dict(zip(keys, flat[1:]))
+
+    def _parallel_train_step(self, points, masks, gt):
+        self._distribute()
+        mesh = self._mesh
+        tp = mesh.shape.get("tp", 1)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, logs = self._loss_fn(*self._local_batch(points, masks, gt), True)
+        # activations are replicated over tp: each rank backpropagates its
+        # share, and the collectives' backward passes add the shares up
+        (loss / tp).backward()
+        named = self._named_trainable()
+        whole = [p for n, p in named if n not in self._split]  # on every rank
+        split = [p for n, p in named if n in self._split]  # replicated over dp
+        syncs = [(whole, None)]  # the world: dp copies of tp shares
+        if mesh.shape["dp"] > 1:
+            syncs.append((split, mesh.groups["dp"]))
+        for params, group in syncs:
+            if not params:
+                continue
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            flat /= mesh.shape["dp"]
+            start = 0
+            for p in params:
+                p.grad = flat[start:start + p.numel()].view_as(p)
+                start += p.numel()
+        self.optimizer.step()
+        return self._global_mean(loss, logs)
 
     # ------------------------------------------------------------------
     # Data pipeline: windowed pairs, padded, pinned, prefetched

@@ -90,6 +90,31 @@ def test_assoc_gn_repeats_bit_for_bit(cuda):
     assert torch.equal(outs, first.expand_as(outs))
 
 
+
+@pytest.mark.gpu
+def test_assoc_gn_on_concurrent_streams(cuda):
+    """Two threads, each on a CUDA stream of its own (the CLI's parallel
+    jobs), launch B1 at once: each stream draws tickets from a counter of
+    its own, so every pass gives the one-stream sums bit for bit."""
+    import threading
+    args = (*_images(cuda), 1, 2, 0.6, "geman_mcclure", 0.4, 0.0)
+    ref = b1.assoc_gn(*args).cpu()
+    out, before = {}, b1.assoc_gn.launches
+
+    def job(k):
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            out[k] = [b1.assoc_gn(*args) for _ in range(100)]
+            torch.cuda.current_stream(cuda).synchronize()
+    threads = [threading.Thread(target=job, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert b1.assoc_gn.launches == before + 200
+    for sums in out.values():
+        assert all(torch.equal(s.cpu(), ref) for s in sums)
+
 @pytest.mark.gpu
 def test_assoc_gn_rejects_bad_inputs(cuda):
     timg, model, normals, valid = _images(cuda)

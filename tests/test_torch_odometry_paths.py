@@ -85,15 +85,37 @@ def test_per_frame_path_matches_jax(frames, upload_format):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(viz_debug=True), "A.19"),
     (dict(upload_format="rimg16"), "leaves out"),
     (dict(upload_quantization=0.01), "leaves out"),
-    (dict(shard_points=2), "A.13"),
 ])
 def test_unported_branches_raise(over, match):
     cfg = dataclasses.replace(tacc.champion_configs()["aggregated"], device="cpu", **over)
     with pytest.raises(NotImplementedError, match=match):
         TICP(cfg, projector=TLoader(TCfg(**SEQ)).projector())
+
+
+def _aggregated_poses(frames, **over):
+    tcfg, _ = _configs(batch_size=1, **over)
+    t = TICP(tcfg, projector=TLoader(TCfg(**SEQ)).projector())
+    for f in frames[:3]:
+        t.process_next_frame(dict(f))
+    return t.get_relative_poses()
+
+
+def test_viz_debug_writes_the_model_range_images(frames, tmp_path, monkeypatch):
+    """viz_debug: one colormapped model range image per frame after the
+    first, under ./viz_debug, and the same poses as without it."""
+    monkeypatch.chdir(tmp_path)
+    poses = _aggregated_poses(frames, viz_debug=True)
+    written = sorted(p.name for p in (tmp_path / "viz_debug").glob("*.png"))
+    assert written == ["model_range_000000.png", "model_range_000001.png"]
+    assert np.array_equal(poses, _aggregated_poses(frames))
+
+
+def test_shard_points_is_ignored_on_the_aggregated_map(frames):
+    """As in the JAX package, shard_points is read in kdtree mode only: on
+    the aggregated map it needs no process group and changes nothing."""
+    assert np.array_equal(_aggregated_poses(frames, shard_points=2), _aggregated_poses(frames))
 
 
 _GN = {"scheme": "geman_mcclure", "sigma": 0.4, "max_iters": 1}

@@ -334,19 +334,23 @@ def test_runner_outputs_and_refusals(tmp_path, monkeypatch):
         "slam.loop_closure.im_size=128", "slam.loop_closure.icp_num_points=512",
         "slam.loop_closure.max_num_candidates=2", "slam/backend=graph_slam",
         "dataset.num_frames=6", "device=cpu", f"log_dir={tmp_path}"])
-    runner = SLAMRunner(cfg)
+    runner = SLAMRunner(dict(cfg, save_map=True))
     metrics = runner.run_odometry()
     assert "synth_00" in metrics and "AVG" in metrics
     for name in ("config.yaml", "metrics.yaml", "synth_00.poses.txt",
-                 "loop_closure_synth_00.npz", "constraints_synth_00/loop_constraints.txt"):
+                 "loop_closure_synth_00.npz", "constraints_synth_00/loop_constraints.txt",
+                 "synth_00_map.ply", "synth_00_map.html"):
         assert (tmp_path / name).exists(), name
     odo = pd.read_csv(tmp_path / "constraints_synth_00" / "odometry_constraints.txt", sep=",")
     assert list(odo.columns)[:3] == ["Unnamed: 0", "src", "tgt"] and len(odo) == 5
-    with pytest.raises(NotImplementedError, match="A.19"):
-        SLAMRunner(dict(cfg, save_map=True))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device=cpu"):
         SLAMRunner(dict(cfg, device="tpu"))
     from pylidar_slam_tpu_torch import run as trun
-    with pytest.raises(NotImplementedError, match="A.18"):
-        trun.run_multirun(Path(CONFIG), ["dataset.num_frames=2,3", "parallel_jobs=2"])
+    fixed = [o for o in CLI_OVERRIDES if not o.startswith("dataset.num_frames=")]
+    out = trun.run_multirun(Path(CONFIG), fixed + [
+        "device=cpu", "dataset.num_frames=2,3", "parallel_jobs=2",
+        f"log_dir={tmp_path / 'sweep'}"])
+    assert len(out) == 2
+    for idx, n in enumerate((2, 3)):
+        assert len(_read_poses(tmp_path / "sweep" / str(idx) / "synth_00.poses.txt")) == n
