@@ -131,13 +131,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.cuda.set_sync_debug_mode("error")``, then three of each under
    ``torch.profiler`` and a wall clock, beside the step's bound (its
    convolutions' FLOPs at 67 TFLOP/s); no B1 or B2 launch;
+14b. bench: the port's measurement entry points through their module
+   functions, once each at a reduced size: ``bench`` (the aggregated
+   champion, 61 frames of the sequence, one timed repeat), ``bench_surfel``
+   with ``SF_NN=exact`` (100 frames, one timed pass) and ``bench_pipeline``
+   (96 frames at 0.5 m/frame, one run); each JSON line printed on a line of
+   its own with the JAX script's keys and finite positive rates, B1's
+   launches in ``bench`` and B2's in ``bench_surfel`` equal to the count the
+   frames processed give;
 15. times: each kernel's device time per call (N calls captured in a CUDA
    graph, replayed under CUDA events), its wall time per call (back-to-back
    calls under CUDA events, which for B1 is the host's enqueue), its plain
    version's, B2's library yardstick (``torch.cdist`` + min) and each
    kernel's bound from this run's inputs, B2 at the surfel path's and at the
-   loop-closure refine's shapes; each champion's steady-state scans/s over
-   the sequence.
+   loop-closure refine's shapes; the kernels each call launches as
+   ``torch.profiler`` counts them; each champion's steady-state scans/s
+   over the sequence (one warm run).
+
+Every ``torch.profiler`` window (kernels and device ms per step) opens
+with PROFILE_FILLER spin kernels, left out of its counts, which take the
+profiler's loss of a window's first kernel records; it fails unless it saw
+some of the filler and at least one kernel for each launch of B1 and B2
+that the wrappers counted in it.
+
+Phases 4 and 5 also hold each champion's trajectory against
+``tests/fixtures/torch_e2e.npz``, recorded on the card by ``python -m
+pylidar_slam_tpu_torch.eval.record_e2e``: the same code stamp
+(``eval/acceptance.code_stamp``) and ground truth, tr_err within 5e-5 of the
+recorded value, the largest translation gap printed.
+
+``--only NAME`` builds and runs one phase alone (a probe, no result line):
+``posenet``, ``datasets``, ``parallel``, ``viz``, or ``bench``, which runs
+the three benches at their own defaults (``bench`` also with the kdtree and
+voxel maps).
 
 With ``--compare DIR`` (repeatable; DIR holds another checkout of the
 package, e.g. an earlier commit unpacked by ``git archive``), a last phase
@@ -166,16 +192,19 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
+from pylidar_slam_tpu_torch import bench, bench_pipeline, bench_surfel
 from pylidar_slam_tpu_torch.config import compose, load_yaml_file
 from pylidar_slam_tpu_torch.dataset import DATASET
 from pylidar_slam_tpu_torch.dataset.synthetic import (SyntheticConfig,
                                                       SyntheticDatasetLoader)
 from pylidar_slam_tpu_torch.eval import acceptance
 from pylidar_slam_tpu_torch.eval import eval_odometry as ev
+from pylidar_slam_tpu_torch.eval.record_e2e import card_line
 from pylidar_slam_tpu_torch.ops import projection, se3
 from pylidar_slam_tpu_torch.ops.kernels import assoc_gn as b1
 from pylidar_slam_tpu_torch.ops.kernels import nn_argmin as b2
@@ -212,7 +241,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # float32 operations per (query, model point) pair of B2: 3 subtractions,
 # 3 products, 2 adds.
 NN_PAIR_FLOPS = 8
-SEQ_REPEATS = 3
+# Warm runs of each champion over the sequence in the times phase (one: the
+# bench phase times the aggregated champion through the port's bench, and
+# `--only bench` repeats it 5 times).
+SEQ_REPEATS = 1
 # The round's accuracy bar: the reference kd-tree run's tr_err + 0.1 pt.
 BAR_PT = 0.001
 # The JAX package's pins for the profiles: tests/test_high_speed.py:231 and
@@ -288,15 +320,25 @@ DATASET_DIGESTS = {
     "ct_icp": "761d3b702a74dff3b0d7ea466d693eb654339b8822b14f01a250ecd898307b9e"}
 
 
+FIXTURE = ROOT / "tests" / "fixtures" / "torch_e2e.npz"
+FIXTURE_TR_ATOL = 5e-5  # a champion's tr_err against its recorded value
+# The bench phase's sizes: (repeats, frames) of the smoke run; `--only bench`
+# runs the benches' own defaults.
+BENCH_SMOKE = {"bench": {"repeats": 1, "frames": 61},
+               "bench_surfel": {"SF_REPEATS": "1", "SF_FRAMES": "100"},
+               "bench_pipeline": {"FP_REPEATS": "1", "FP_FRAMES": "96",
+                                  "FP_WARMUP_FRAMES": "24", "FP_COOLDOWN_FRAMES": "24"}}
+BENCH_KEYS = {"bench": ["metric", "value", "unit", "vs_baseline", "median_value", "rates",
+                        "batch", "stages", "phases"],
+              "bench_surfel": ["metric", "value", "unit", "vs_baseline", "tr_err", "rot_err",
+                               "timed_frames", "batch", "rates", "config", "total_wall_s"],
+              "bench_pipeline": ["metric", "value", "unit", "timed_frames", "batch",
+                                 "stages_ms_per_frame", "pipeline_ms_per_flush",
+                                 "loop_ms_per_frame", "runs", "repeats"]}
+
+
 def log(msg: str):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def build_phase() -> dict:
@@ -522,7 +564,8 @@ def aggregated_phase(loader, frames, dev) -> dict:
     if launches != expected:
         raise AssertionError(f"assoc_gn launched {launches} times, expected {expected}")
     return {"frames": n, "launches": launches, "first_run_s": elapsed,
-            **score("aggregated", rel, loader, n)}
+            **score("aggregated", rel, loader, n),
+            "fixture": fixture_check("aggregated", rel, loader)}
 
 
 def surfel_phase(loader, frames, dev):
@@ -544,7 +587,39 @@ def surfel_phase(loader, frames, dev):
     if not 0 < worked <= launches:
         raise AssertionError(f"{worked} active nn_argmin launches")
     return odom, {"frames": n, "launches": launches, "active_launches": worked,
-                  "first_run_s": elapsed, **score("surfel", rel, loader, n)}
+                  "first_run_s": elapsed, **score("surfel", rel, loader, n),
+                  "fixture": fixture_check("surfel", rel, loader)}
+
+
+def fixture_check(name, rel, loader) -> dict:
+    """The champion's run against its trajectory in the card-recorded
+    fixture: the same code stamp and ground truth, tr_err within
+    FIXTURE_TR_ATOL of the recorded one; prints the largest translation gap
+    between the two trajectories."""
+    fx = np.load(FIXTURE)
+    recorded, current = bytes(fx["stamp"]).decode(), acceptance.code_stamp()
+    if recorded != current:
+        raise AssertionError(f"{FIXTURE.name} was recorded under code stamp {recorded[:12]}, "
+                             f"the sources stamp {current[:12]}: re-record it on the card "
+                             f"(python -m pylidar_slam_tpu_torch.eval.record_e2e)")
+    gt = fx["gt_absolute"]
+    n = gt.shape[0]
+    own_gt = ev.compute_absolute_poses(loader.get_ground_truth("synth_00")[:n])
+    if not np.allclose(own_gt, gt, atol=1e-9):
+        raise AssertionError(f"{FIXTURE.name}: another ground truth than this sequence's")
+    traj = ev.compute_absolute_poses(rel)
+    tr_err = ev.compute_kitti_metrics(traj, gt)[0]
+    want = float(fx[f"{name}_tr_err"])
+    gap = float(np.linalg.norm(traj[:, :3, 3] - fx[f"{name}_trajectory"][:, :3, 3],
+                               axis=-1).max())
+    log(f"[{name}] against {FIXTURE.name} (recorded on {fx['card']}, stamp {recorded[:12]}): "
+        f"tr_err {100 * tr_err:.6f}% vs recorded {100 * want:.6f}% (|diff| "
+        f"{abs(tr_err - want):.3e}, tolerance {FIXTURE_TR_ATOL:.0e}); largest translation "
+        f"gap {gap:.3e} m")
+    if not abs(tr_err - want) <= FIXTURE_TR_ATOL:
+        raise AssertionError(f"{name}: tr_err {tr_err} vs recorded {want}")
+    return {"stamp": recorded, "recorded_tr_err": want, "tr_err_diff": abs(tr_err - want),
+            "max_translation_gap_m": gap, "recorded_on": str(fx["card"])}
 
 
 def _step_call(odom, frame):
@@ -583,7 +658,8 @@ def step_profile(name, odom, frame, steps=3) -> dict:
     step (back-to-back steps ending in a sync) and the device's idle share
     of a step, 1 - device / wall, all from the same map state."""
     step, _ = _step_call(odom, frame)
-    kernels, device_ms = _device_kernels(step, steps)
+    prof = _device_kernels(step, steps)
+    kernels, device_ms = prof.kernels, prof.device_ms
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -592,9 +668,13 @@ def step_profile(name, odom, frame, steps=3) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     idle = None if device_ms is None else 1.0 - device_ms / wall_ms
-    log(f"[step] {name}: {kernels} kernels per step, device {device_ms} ms, wall "
+    log(f"[step] {name}: {kernels} kernels per step ({prof.own_kernels} of B1 and B2 for "
+        f"{prof.own_launches} launches; {prof.filler_lost} filler kernels dropped), device "
+        f"{device_ms} ms, wall "
         f"{wall_ms:.2f} ms per step, device idle share {idle}")
     return {"kernels_per_step": kernels, "device_ms_per_step": device_ms,
+            "own_kernels_per_step": prof.own_kernels, "own_launches_per_step": prof.own_launches,
+            "filler_lost": prof.filler_lost,
             "wall_ms_per_step": wall_ms, "idle_share": idle}
 
 
@@ -904,7 +984,8 @@ def match_profile(lc, card) -> tuple:
     log("[sync] slam: one _match_candidates dispatch under set_sync_debug_mode('error'), "
         "no host sync")
     launches = b2.nn_argmin.launches
-    kernels, device_ms = _device_kernels(lambda: lc._match_candidates(*args), 3)
+    prof = _device_kernels(lambda: lc._match_candidates(*args), 3)
+    kernels, device_ms = prof.kernels, prof.device_ms
     b2_per_match = (b2.nn_argmin.launches - launches) / 4
     walls = []
     for _ in range(3):
@@ -915,10 +996,12 @@ def match_profile(lc, card) -> tuple:
     lc._pending_matches = pending
     wall_ms = float(np.median(walls))
     out = {"candidates": stats["candidates"], "kernels": kernels, "device_ms": device_ms,
+           "own_kernels": prof.own_kernels, "filler_lost": prof.filler_lost,
            "wall_ms": wall_ms, "wall_runs_ms": walls, "b2_launches": b2_per_match,
            "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms}
     log(f"[slam] {card}: one submap event's match ({stats['candidates']} candidates, padded "
-        f"to 10): {kernels} kernels, device {device_ms} ms, wall {wall_ms:.2f} ms "
+        f"to 10): {kernels} kernels ({prof.own_kernels} of B2), device {device_ms} ms, "
+        f"wall {wall_ms:.2f} ms "
         f"(runs {[round(w, 2) for w in walls]}), {b2_per_match:.0f} B2 launches")
     cloud, mask = lc.saved_clouds[k]
     cand, cand_mask = lc.saved_clouds[stats["ids"][0]]
@@ -1197,7 +1280,8 @@ def _profile_calls(name, fn, flops, card, calls=3) -> dict:
     """Kernels and device ms per call (torch.profiler), wall ms per call
     (back-to-back calls ending in a sync), the idle share and the bound:
     `flops` float32 operations at 67 TFLOP/s."""
-    kernels, device_ms = _device_kernels(fn, calls)
+    prof = _device_kernels(fn, calls)
+    kernels, device_ms = prof.kernels, prof.device_ms
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
@@ -1475,41 +1559,74 @@ def compare_b2_phase(queries, model, valid, lc_args) -> dict:
             "tolerance_ulps": NN_ULPS}
 
 
-def _device_kernels(fn, calls: int):
-    """(kernels per call, summed device ms per call) of `fn`'s device work
-    by torch.profiler, or (None, None) when the profiler sees no device
-    activity."""
+@dataclasses.dataclass
+class DeviceProfile:
+    """What torch.profiler saw of `calls` calls, per call."""
+    kernels: Optional[float]  # device kernels; None when it saw none
+    device_ms: Optional[float]  # their summed device time
+    own_kernels: float  # of them, B1's and B2's (by name)
+    own_launches: float  # B1 and B2 launches the wrappers counted meanwhile
+    filler_lost: int  # of the window's opening filler kernels, the ones it dropped
+
+
+OWN_KERNELS = ("assoc_gn", "nn_argmin", "nn_pack_model")
+# Spin kernels (torch.cuda._sleep) that open every profiler window, left out
+# of its counts.  Once other processes have used the card (the CLI runs, the
+# parallel phase's ranks), the profiler drops the first kernel records of
+# each window, torch's kernels and B1's and B2's alike, more with each such
+# process (up to 43 by the times phase, which a 10-call B1 window of 10
+# kernels cannot spare): the filler takes that loss.
+PROFILE_FILLER = 256
+
+
+def _device_kernels(fn, calls: int) -> DeviceProfile:
+    """Kernels and summed device ms per call of `fn`'s device work by
+    torch.profiler over `calls` calls; fails when the profiler saw fewer of
+    B1's and B2's kernels than their wrappers launched, or none of the
+    filler."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    launches = b1.assoc_gn.launches + b2.nn_argmin.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_FILLER):
+            torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = b1.assoc_gn.launches + b2.nn_argmin.launches - launches
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if "spin_kernel" not in e.name]
+    lost = PROFILE_FILLER - (len(device) - len(kernels))
+    own = sum(any(k in e.name for k in OWN_KERNELS) for e in kernels)
+    if lost >= PROFILE_FILLER or own < launches:
+        raise AssertionError(f"torch.profiler dropped {lost} of {PROFILE_FILLER} filler "
+                             f"kernels and saw {own} kernels of B1 and B2 for {launches} "
+                             f"launches")
     if not kernels:
-        return None, None
+        return DeviceProfile(None, None, 0.0, 0.0, lost)
     total_us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
                    for e in kernels)
-    return len(kernels) / calls, total_us / 1000.0 / calls
+    return DeviceProfile(len(kernels) / calls, total_us / 1000.0 / calls, own / calls,
+                         launches / calls, lost)
 
 
 def device_time(name, fn, calls) -> dict:
     """Device ms per call by graph replay; torch.profiler's kernel sums if
     the capture fails (the record names the method).  Also the kernels the
     call launches, as the profiler counts them."""
-    per_call, prof_ms = _device_kernels(fn, 10)
+    prof = _device_kernels(fn, 10)
     try:
         runs, method = graph_ms(fn, calls), f"CUDA graph of {calls} calls, replayed"
     except RuntimeError as e:
         log(f"[times] {name}: graph capture failed ({e}); torch.profiler kernel sums")
-        if prof_ms is None:
+        if prof.device_ms is None:
             raise AssertionError(f"{name}: no device time: capture failed and the "
                                  "profiler saw no kernels") from e
-        runs, method = [prof_ms], "torch.profiler kernel sums over 10 calls"
+        runs, method = [prof.device_ms], "torch.profiler kernel sums over 10 calls"
     return {"runs_ms": runs, "ms": float(np.mean(runs)), "method": method,
-            "kernels_per_call": per_call, "profiler_ms": prof_ms}
+            "kernels_per_call": prof.kernels, "profiler_ms": prof.device_ms,
+            "launches_per_call": prof.own_launches, "filler_lost": prof.filler_lost}
 
 
 def _turns(name, fns, timer) -> dict:
@@ -1576,8 +1693,9 @@ def kernel_times(name, kernel, plain, library, bound, card, shape) -> dict:
                else f"{1000 * out['library_ms']:.1f} us")
     log(f"[times] {card}: {name} {shape}: device {1000 * dev_t['ms']:.2f} us/call "
         f"(runs {[round(1000 * x, 2) for x in dev_t['runs_ms']]}, {dev_t['method']}; "
-        f"profiler: {dev_t['kernels_per_call']} kernels/call, "
-        f"{dev_t['profiler_ms']} ms/call); wall {1000 * out['wall_ms']:.1f} us/call "
+        f"profiler: {dev_t['kernels_per_call']} kernels/call for "
+        f"{dev_t['launches_per_call']} launches, {dev_t['profiler_ms']} ms/call, "
+        f"{dev_t['filler_lost']} filler kernels dropped); wall {1000 * out['wall_ms']:.1f} us/call "
         f"(runs {[round(1000 * x, 1) for x in out['wall_runs_ms']]}); plain "
         f"{1000 * out['plain_ms']:.1f} us/call; library {lib_txt}; bound "
         f"{1000 * bound['bound_ms']:.3f} us by {bound['bound_by']} ({bound['bytes']} B, "
@@ -2065,6 +2183,92 @@ def viz_phase(dev, card) -> dict:
     return out
 
 
+def _bench_line(name, result, card) -> None:
+    """Prints a bench's JSON line on a line of its own; fails unless it has
+    the JAX script's keys and finite positive rates."""
+    log(f"[bench] {card}: {name}:")
+    log(json.dumps(result))
+    if list(result) != BENCH_KEYS[name]:
+        raise AssertionError(f"{name}: keys {list(result)}, expected {BENCH_KEYS[name]}")
+    rates = [result["value"]] + list(result.get("rates") or result.get("runs"))
+    if not all(math.isfinite(r) and r > 0 for r in rates):
+        raise AssertionError(f"{name}: rates {rates}")
+
+
+def _counted(fn, *args):
+    """(fn's result, B1 launches, B2 launches), the counts set to 0 just
+    before the call."""
+    b1.assoc_gn.launches = 0
+    b2.nn_argmin.launches = 0
+    out = fn(*args)
+    return out, b1.assoc_gn.launches, b2.nn_argmin.launches
+
+
+def _expect(name, kernel, launches, expected):
+    log(f"[bench] {name}: {kernel} launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"{name}: {kernel} launched {launches} times, expected {expected}")
+
+
+def bench_phase(loader, frames, dev, card, full=False) -> dict:
+    """The port's three benches through their module functions: once each at
+    the BENCH_SMOKE sizes, or (`full`, ``--only bench``) at their own
+    defaults with the kdtree and voxel maps too.  B1's launches in the
+    aggregated bench and B2's in ``bench_surfel`` with SF_NN=exact are held
+    to the count the frames processed give."""
+    out = {}
+    iters = acceptance.champion_configs()["aggregated"].max_num_alignments
+    if full:
+        s = bench.Settings()
+        bframes, bloader, source = bench.load_frames(s.frames)
+    else:
+        s = bench.Settings(**BENCH_SMOKE["bench"])
+        bframes = [f["numpy_pc"] for f in frames[:s.frames]]
+        bloader, source = loader, "synthetic-kitti64x1024"
+    for bench_map in ("aggregated", "kdtree", "voxel") if full else ("aggregated",):
+        result, l1, l2 = _counted(bench.run, dataclasses.replace(s, bench_map=bench_map),
+                                  bframes, bloader, source)
+        _bench_line("bench", result, card)
+        if "probe_error" in result["stages"]:
+            raise AssertionError(f"bench {bench_map}: {result['stages']['probe_error']}")
+        # frames stepped: the warm-up's after the first, the repeats', and
+        # the stage probe's 5 batched steps
+        stepped = s.warmup - 1 + s.repeats * len(bench.timed_frames(bframes, s)) + 5 * s.batch
+        _expect(f"bench {bench_map}", "assoc_gn", l1,
+                iters * stepped if bench_map == "aggregated" else 0)
+        _expect(f"bench {bench_map}", "nn_argmin", l2, 0)
+        out[f"bench_{bench_map}"] = {"line": result, "assoc_gn_launches": l1,
+                                     "nn_argmin_launches": l2}
+
+    env = {"SF_NN": "exact", **({} if full else BENCH_SMOKE["bench_surfel"])}
+    n = int(env.get("SF_FRAMES", "140"))
+    gt = ev.compute_absolute_poses(loader.get_ground_truth("synth_00")[:n])
+    result, l1, l2 = _counted(bench_surfel.run, [f["numpy_pc"] for f in frames[:n]], gt,
+                              loader.projector(), env)
+    _bench_line("bench_surfel", result, card)
+    passes = 1 + int(env.get("SF_REPEATS", "3"))
+    sf_iters = bench_surfel.build_config(env).max_num_alignments
+    _expect("bench_surfel SF_NN=exact", "nn_argmin", l2, passes * (n - 1) * sf_iters)
+    _expect("bench_surfel SF_NN=exact", "assoc_gn", l1, 0)
+    out["bench_surfel"] = {"line": result, "nn_argmin_launches": l2}
+
+    env = {} if full else dict(BENCH_SMOKE["bench_pipeline"])
+    seq, proj = bench_pipeline.load(env)
+    result, l1, l2 = _counted(bench_pipeline.run, seq, proj, env)
+    _bench_line("bench_pipeline", result, card)
+    _expect("bench_pipeline", "assoc_gn", l1,
+            result["repeats"] * (len(seq) - 1) * iters)
+    log(f"[bench] bench_pipeline: nn_argmin launches {l2} (the loop closure's refine)")
+    out["bench_pipeline"] = {"line": result, "assoc_gn_launches": l1, "nn_argmin_launches": l2}
+    return out
+
+
+def only_bench(dev, card) -> dict:
+    """`--only bench`: the three benches at their own defaults."""
+    loader, frames, _ = load_sequence()
+    return bench_phase(loader, frames, dev, card, full=True)
+
+
 def only_parallel(dev, card) -> dict:
     """`--only parallel`: the unsharded surfel champion, the parallel phase
     and B2 at a rank's shard."""
@@ -2085,7 +2289,7 @@ def main() -> int:
                         help="another checkout of the package (e.g. an earlier commit "
                              "unpacked by git archive) whose kernels are timed against "
                              "this one's; repeatable")
-    parser.add_argument("--only", choices=["posenet", "datasets", "parallel", "viz"],
+    parser.add_argument("--only", choices=["posenet", "datasets", "parallel", "viz", "bench"],
                         help="build, then run this phase alone (a probe: no result line)")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
@@ -2105,7 +2309,8 @@ def main() -> int:
     build = phase("build", build_phase)
     if args.only:
         result = phase(args.only, {"posenet": posenet_phase, "datasets": datasets_phase,
-                                   "parallel": only_parallel, "viz": viz_phase}[args.only],
+                                   "parallel": only_parallel, "viz": viz_phase,
+                                   "bench": only_bench}[args.only],
                        dev, card)
         (ROOT / "build" / f"chip_smoke_{args.only}.json").write_text(json.dumps(
             {"card": card, args.only: result, "seconds": seconds}, indent=1, default=str))
@@ -2133,6 +2338,7 @@ def main() -> int:
     sharded = phase("sharded B2", sharded_b2, b2_in, card)
     viz = phase("viz", viz_phase, dev, card)
     posenet = phase("posenet", posenet_phase, dev, card)
+    benches = phase("bench", bench_phase, loader, frames, dev, card)
     times = phase("times", times_phase, b1_in, b2_in, lc_args, loader, frames, dev, card)
     compare = phase("compare", compare_phase, args.compare, b1_in, b2_in, card)
 
@@ -2144,7 +2350,7 @@ def main() -> int:
          "highway": highway, "ct_icp": ct_icp, "profiles": profiles, "slam": slam,
          "cli": cli, "projective": projective_run, "voxel": voxel, "posenet": posenet,
          "datasets": datasets, "parallel": parallel, "sharded_b2": sharded, "viz": viz,
-         "times": times,
+         "bench": benches, "times": times,
          "compare": compare, "seconds": seconds},
         indent=1, default=str))
     b1_paths = {"aggregated": aggregated["launches"], "highway": highway["launches"],

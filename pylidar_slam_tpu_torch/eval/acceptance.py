@@ -1,14 +1,38 @@
-"""The acceptance sequences, the champion configurations and the odometry
-profiles (port of the part of ``pylidar_slam_tpu.eval.acceptance`` the
-ported slices need).
+"""The acceptance sequences, the champion configurations, the odometry
+profiles and the code stamp of the card-recorded fixture (port of
+``pylidar_slam_tpu.eval.acceptance``).
 
-The JAX package's ``bench.build_icp_config("aggregated", "rimg8")`` is
-pinned equal to the aggregated champion, ``build_icp_config("voxel",
-"rimg8")`` to ``profile_configs()["voxel"]``, and its
+The root ``bench.build_icp_config("aggregated", "rimg8")`` is pinned equal
+to the aggregated champion, ``build_icp_config("voxel", "rimg8")`` to
+``profile_configs()["voxel"]``, and the JAX package's
 ``config/slam/odometry`` profiles to ``profile_configs()`` (the port reads
 no YAML).
+
+``tests/fixtures/torch_e2e.npz`` holds both champions' trajectories over
+the acceptance sequence, recorded on the card by
+``python -m pylidar_slam_tpu_torch.eval.record_e2e``.  ``code_stamp()``
+says which code recorded it, so a stale fixture fails the tests.
 """
 from __future__ import annotations
+
+import ast
+import hashlib
+from pathlib import Path
+
+import numpy as np
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+# The port's sources that one champion step loads, relative to the package
+# (a test holds this list to the modules such a step imports), and the
+# shared host encoder's source, relative to the repository.
+STAMP_MODULES = (
+    "__init__.py", "config.py", "eval/__init__.py", "eval/acceptance.py",
+    "models/__init__.py", "models/posenet.py", "models/resnet.py",
+    "ops/*.py", "ops/kernels/*.py", "slam/__init__.py",
+    "slam/initialization.py", "slam/odometry/*.py", "training/__init__.py",
+    "training/prediction_modules.py", "utils/__init__.py", "utils/build.py",
+    "utils/checks.py", "utils/native.py", "utils/transfer.py")
+STAMP_NATIVE = "native/pointcloud_native.cpp"
 
 SEQ_KW = dict(lidar_height=64, lidar_width=1024, num_frames=140,
               num_walls=40, num_pillars=25)
@@ -128,3 +152,52 @@ def champion_configs():
             num_points_padded=66560, batch_size=12, upload_format="rimg8",
             data_key="numpy_pc"),
     }
+
+
+def build_odometry(name: str, device=None):
+    """The champion `name`'s odometry on the acceptance sequence's
+    projector, on the card unless `device` says otherwise."""
+    from pylidar_slam_tpu_torch.ops.projection import SphericalProjection
+    from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
+    proj = SphericalProjection(SEQ_KW["lidar_height"], SEQ_KW["lidar_width"],
+                               UP_FOV, DOWN_FOV)
+    return ICPFrameToModel(champion_configs()[name], projector=proj, device=device)
+
+
+def stamp_files(package_dir: Path = PACKAGE_DIR) -> list:
+    """The Python modules the stamp hashes, in a fixed order."""
+    files = set()
+    for pattern in STAMP_MODULES:
+        files.update(package_dir.glob(pattern))
+    return sorted(files, key=lambda f: f.relative_to(package_dir).as_posix())
+
+
+def code_stamp(package_dir: Path = PACKAGE_DIR) -> str:
+    """Hash of what decides the champions' trajectories: each champion's
+    ``repr(config)``, the ``ast.dump`` of every module in ``STAMP_MODULES``
+    (comment and layout edits keep the stamp, any code or docstring edit
+    changes it), the bytes of the CUDA sources and of the host encoder's
+    source, and the nvcc flags.
+
+    The port has no traced program to hash, as the JAX package hashes its
+    jaxprs, so it hashes its sources.  It hashes no torch version, device
+    or absolute path: the CPU host and the card compute the same stamp.
+    """
+    from pylidar_slam_tpu_torch.ops.kernels.cuda_build import NVCC_FLAGS
+    h = hashlib.sha256()
+    for name, cfg in sorted(champion_configs().items()):
+        h.update(name.encode())
+        h.update(repr(cfg).encode())
+    for f in stamp_files(package_dir):
+        h.update(f.relative_to(package_dir).as_posix().encode())
+        h.update(ast.dump(ast.parse(f.read_text())).encode())
+    for f in sorted((package_dir / "csrc").glob("*.cu")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update((package_dir.parent / STAMP_NATIVE).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def stamp_array(stamp: str) -> np.ndarray:
+    return np.frombuffer(stamp.encode(), dtype=np.uint8).copy()

@@ -20,6 +20,7 @@ memory behind a CUDA event and
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
@@ -418,6 +419,10 @@ class ICPFrameToModel:
         self._iter = 0
         self.last_rpose_device: Optional[torch.Tensor] = None
         self._boot_cloud: Optional[np.ndarray] = None
+        # Where the batched pipeline's thread spends each flush (two clock
+        # reads a flush): staging and enqueueing the upload, and dispatching
+        # the batched step.  Read by the benches.
+        self.pipe_stats = {"upload_wait_s": 0.0, "dispatch_s": 0.0, "flushes": 0}
 
     def _viz_update(self):
         """With `viz_debug`, the local map's range image (aggregated and
@@ -716,16 +721,22 @@ class ICPFrameToModel:
             return
         bufs = self._frame_buffer
         self._frame_buffer = []
+        t0 = time.perf_counter()
         if isinstance(bufs[0], tuple):  # vertex-map inputs, on the device
             pts = torch.stack([p for p, _ in bufs])
             msks = torch.stack([m for _, m in bufs])
         else:
             pts = self._upload(self._stack(bufs))
             msks = self._ones_mask(len(bufs))
+        t1 = time.perf_counter()
         (self._map_state, self._delta_since_update, self.last_rpose_device,
          params, _diags) = self._batch_step(
             self._map_state, self._delta_since_update,
             self.last_rpose_device, pts, msks)
+        st = self.pipe_stats
+        st["upload_wait_s"] += t1 - t0
+        st["dispatch_s"] += time.perf_counter() - t1
+        st["flushes"] += 1
         self._params_log.append(params)
         if self.emit_batch_poses:
             self._pending_params.append(copy_to_host_async(params))
