@@ -139,6 +139,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    its own with the JAX script's keys and finite positive rates, B1's
    launches in ``bench`` and B2's in ``bench_surfel`` equal to the count the
    frames processed give;
+14c. graft: the driver's entry points (``graft_entry``): ``entry()``'s
+   aggregated step on the card (32x256, 8,192 points, 6 GN trips) over
+   three steps -- the example arguments (an empty map), a keyframe step
+   past the insert threshold and a matching step at a small twist -- with
+   B1 and with B1's plain version (poses within 1e-5), B1's 18 launches, one
+   step under sync-debug "error" and three under the profiler and a wall
+   clock; then ``dryrun_multichip(4)`` (4 gloo ranks on cuda:0: dp=4, and
+   dp=2 x tp=2) with its pose chain moved off its edges (the dry run's own
+   fits them exactly): every rank's train steps, sharded GN step,
+   edge-sharded pose graph and ``shard_points=4`` odometry equal, the pose
+   graph within 1e-8 of the whole edge set optimized in one process on the
+   card (float64) and moved, the odometry within 5e-4 of a one-rank run of
+   its configuration, B2's launches per rank, and B2 against its plain
+   version on every rank's recorded inputs (its block of 128 targets
+   against the map: a split count of its own);
 15. times: each kernel's device time per call (N calls captured in a CUDA
    graph, replayed under CUDA events), its wall time per call (back-to-back
    calls under CUDA events, which for B1 is the host's enqueue), its plain
@@ -161,9 +176,10 @@ pylidar_slam_tpu_torch.eval.record_e2e``: the same code stamp
 recorded value, the largest translation gap printed.
 
 ``--only NAME`` builds and runs one phase alone (a probe, no result line):
-``posenet``, ``datasets``, ``parallel``, ``viz``, or ``bench``, which runs
+``posenet``, ``datasets``, ``parallel``, ``viz``, ``bench``, which runs
 the three benches at their own defaults (``bench`` also with the kdtree and
-voxel maps).
+voxel maps), or ``graft``, which runs the dry run at 8 ranks (the driver's
+MULTICHIP size).
 
 With ``--compare DIR`` (repeatable; DIR holds another checkout of the
 package, e.g. an earlier commit unpacked by ``git archive``), a last phase
@@ -197,7 +213,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pylidar_slam_tpu_torch import bench, bench_pipeline, bench_surfel
+from pylidar_slam_tpu_torch import bench, bench_pipeline, bench_surfel, graft_entry
 from pylidar_slam_tpu_torch.config import compose, load_yaml_file
 from pylidar_slam_tpu_torch.dataset import DATASET
 from pylidar_slam_tpu_torch.dataset.synthetic import (SyntheticConfig,
@@ -210,9 +226,11 @@ from pylidar_slam_tpu_torch.ops.kernels import assoc_gn as b1
 from pylidar_slam_tpu_torch.ops.kernels import nn_argmin as b2
 from pylidar_slam_tpu_torch.ops.kernels import seams
 from pylidar_slam_tpu_torch.ops.kernels.cuda_build import CSRC
+from pylidar_slam_tpu_torch.ops.pose_graph import PoseGraph, optimize_pose_graph
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
-from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
+from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import (ICPFrameToModel,
+                                                               ICPFrameToModelConfig)
 from pylidar_slam_tpu_torch.slam.slam import SLAM
 from pylidar_slam_tpu_torch.utils import device_timing, native
 from pylidar_slam_tpu_torch.utils.device_timing import graph_ms, time_calls
@@ -2279,6 +2297,169 @@ def only_parallel(dev, card) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# graft: the driver's entry points (graft_entry.entry, dryrun_multichip)
+# ----------------------------------------------------------------------------
+
+# B1 against its plain version over the three steps: the same 30 sums in
+# another order (within SUM_TOL of their scale), so the poses within the
+# port's bar against JAX's on the CPU (tests/test_torch_graft.py).
+GRAFT_POSE_TOL = 1e-5
+# The sharded odometry against one rank: tests/test_parallel.py's bar for
+# exact NN (ROADMAP.md §C7).
+GRAFT_SHARD_TOL = 5e-4
+# The edge-sharded pose graph against the whole edge set in one process, in
+# float64: tests/test_torch_graft.py's bar against JAX; and the least move
+# of the perturbed chain that shows the optimizer worked.
+GRAFT_POSE_GRAPH_TOL = 1e-8
+GRAFT_POSE_GRAPH_MOVED = 1e-2
+GRAFT_RANKS = 4  # the default run's dry run: dp 2 x tp 2 by factorize_two(4)
+GRAFT_RANKS_ONLY = 8  # `--only graft`: the driver's MULTICHIP size
+
+
+def _graft_chain(step, args) -> list:
+    """``graft_entry.step_chain``: the example step (an empty map), the
+    keyframe that fills it and the matching step; each one's inputs,
+    relative pose and diagnostics."""
+    return [{"inputs": inputs, "rpose": res[2], "diag": res[4]}
+            for inputs, res in graft_entry.step_chain(step, args)]
+
+
+def _graft_nn(res, dev) -> dict:
+    """B2 against its plain version on every B2 call the dry run's ranks
+    recorded (each rank's block of the targets against the map)."""
+    cases = []
+    for r, rank in enumerate(res):
+        if len(rank["nn_calls"]) != rank["b2_launches"]:
+            raise AssertionError(f"graft: rank {r} recorded {len(rank['nn_calls'])} B2 "
+                                 f"calls for {rank['b2_launches']} launches")
+        for q, m, v in rank["nn_calls"]:
+            cases.append(_b2_case(f"graft dry run, rank {r}",
+                                  *(torch.from_numpy(a).to(dev) for a in (q, m, v))))
+    return {"cases": cases, "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def graft_phase(dev, card, ranks=GRAFT_RANKS) -> dict:
+    """The port's driver entry points on the card: ``entry()``'s step on
+    kernel B1 against the same steps on B1's plain version, B1's launches
+    counted, one step under sync-debug "error", the matching step's kernels,
+    device and wall ms; then ``dryrun_multichip(ranks)`` (gloo ranks on
+    cuda:0) on a perturbed pose chain: every rank's results equal, the pose
+    graph within GRAFT_POSE_GRAPH_TOL of the whole edge set in one process,
+    the sharded odometry within GRAFT_SHARD_TOL of a one-rank run of its
+    config, B2's launches per rank, B2 against its plain version on each
+    rank's recorded inputs."""
+    step, args = graft_entry.entry()  # no device: the card
+    if args[2].device.type != "cuda":
+        raise AssertionError(f"graft: entry() put its arguments on {args[2].device}")
+    per_step = 6  # the entry's max_num_alignments: fixed trips, one B1 launch each
+    chain, l1, _ = _counted(_graft_chain, step, args)
+    torch.cuda.synchronize()
+    _expect("graft entry", "assoc_gn", l1, per_step * len(chain))
+    real = am.assoc_gn
+    am.assoc_gn = b1.assoc_gn_plain
+    try:
+        plain = _graft_chain(step, args)
+    finally:
+        am.assoc_gn = real
+    gap = max(float((a["rpose"] - b["rpose"]).abs().max()) for a, b in zip(chain, plain))
+    diags = [[float(x) for x in c["diag"]] for c in chain]
+    log(f"[graft] {card}: entry() on cuda, 3 steps (empty map, keyframe, matching): "
+        f"(loss, iterations, matches, inserted) {diags}; assoc_gn launches {l1}; poses "
+        f"against B1's plain version within {gap:.3e} (bar {GRAFT_POSE_TOL})")
+    if gap > GRAFT_POSE_TOL:
+        raise AssertionError(f"graft: entry() steps {gap} from B1's plain version")
+    if diags[2][2] < 1000 or diags[1][3] != 1.0:
+        raise AssertionError(f"graft: the keyframe did not fill the map for the matching "
+                             f"step: {diags}")
+    matching = chain[2]["inputs"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(*matching)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[sync] graft entry: one step under set_sync_debug_mode('error'), no host sync")
+    prof = _device_kernels(lambda: step(*matching), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(*matching)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    log(f"[step] graft entry (matching step, 32x256, 8,192 points): {prof.kernels} kernels "
+        f"per step ({prof.own_kernels} of B1 for {prof.own_launches} launches), device "
+        f"{prof.device_ms} ms, wall {wall_ms:.2f} ms")
+    out = {"entry": {"diags": diags, "assoc_gn_launches": l1, "plain_gap": gap,
+                     "kernels_per_step": prof.kernels, "device_ms_per_step": prof.device_ms,
+                     "wall_ms_per_step": wall_ms}}
+
+    work = ROOT / "build" / "chip_graft"
+    shutil.rmtree(work, ignore_errors=True)
+    inputs = graft_entry.dryrun_inputs(ranks)
+    # the JAX file's chain fits its edges exactly, so its optimum is its
+    # start; moved off them, the ranks' all-reduced sums decide the result
+    graph = inputs["pose_graph"] = graft_entry.perturbed_pose_graph(inputs["pose_graph"])
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(ranks, workdir=work, inputs=inputs, record_nn=True)
+    dry_s = time.perf_counter() - t0
+    first = res[0]
+    same = all(r["gn"][1] == first["gn"][1]
+               and np.array_equal(r["gn"][0], first["gn"][0])
+               and np.array_equal(r["pose_graph"], first["pose_graph"])
+               and np.array_equal(r["odometry"], first["odometry"])
+               and all((r[p]["loss"], r[p]["digest"]) == (first[p]["loss"], first[p]["digest"])
+                       for p in ("dp", "tp"))
+               for r in res[1:])
+    alone = graft_entry.odometry_poses(dev, ranks, inputs["odometry"], 0)
+    odo_gap = float(np.abs(first["odometry"] - alone).max())
+    whole = optimize_pose_graph(
+        torch.from_numpy(graph["poses"]).to(dev),
+        PoseGraph(**{k: torch.from_numpy(graph[k]).to(dev) for k in PoseGraph._fields}),
+        num_iters=2, cg_iters=8).cpu().numpy()
+    pg_gap = float(np.abs(first["pose_graph"] - whole).max())
+    pg_moved = float(np.abs(whole - graph["poses"]).max())
+    launches = [r["b2_launches"] for r in res]
+    # B2 runs on the GN trips that search (every `reassoc_every`-th of the 3
+    # fixed trips; the dry run keeps the default) of each registered frame
+    every = ICPFrameToModelConfig().reassoc_every
+    expected = len(range(0, 3, every)) * (len(inputs["odometry"]) - 1)
+    log(f"[graft] {card}: dryrun_multichip({ranks}) on cuda:0 ({ranks} gloo ranks, dp "
+        f"{ranks} / dp {ranks // 2} x tp 2): {dry_s:.1f} s wall; dp loss "
+        f"{first['dp']['loss']:.6f}, tp loss {first['tp']['loss']:.6f}, sharded GN dx "
+        f"{np.round(first['gn'][0], 6).tolist()} loss {first['gn'][1]:.6f}, pose graph "
+        f"x {np.round(first['pose_graph'][:, 0, 3], 6).tolist()} (moved {pg_moved:.3e}, "
+        f"against the whole edge set in one process within {pg_gap:.3e}, bar "
+        f"{GRAFT_POSE_GRAPH_TOL}); every rank equal: {same}; sharded odometry against one rank within {odo_gap:.3e} (bar {GRAFT_SHARD_TOL}); "
+        f"nn_argmin launches per rank {launches} (expected {expected})")
+    if not same:
+        raise AssertionError("graft: the dry run's ranks differ")
+    if odo_gap > GRAFT_SHARD_TOL:
+        raise AssertionError(f"graft: sharded odometry {odo_gap} from one rank")
+    if pg_gap > GRAFT_POSE_GRAPH_TOL or pg_moved < GRAFT_POSE_GRAPH_MOVED:
+        raise AssertionError(f"graft: edge-sharded pose graph {pg_gap} from the whole edge "
+                             f"set, moved {pg_moved}")
+    if set(launches) != {expected}:
+        raise AssertionError(f"graft: nn_argmin launches {launches}, expected {expected}")
+    if not all(np.isfinite(first[p]["loss"]) for p in ("dp", "tp")):
+        raise AssertionError("graft: a train step's loss is not finite")
+    nn = _graft_nn(res, dev)
+    out["dryrun"] = {"ranks": ranks, "seconds": dry_s, "identical": same,
+                     "odometry_gap": odo_gap, "pose_graph_gap": pg_gap,
+                     "pose_graph_moved": pg_moved, "nn_argmin": nn,
+                     "nn_argmin_launches": launches,
+                     "losses": {p: first[p]["loss"] for p in ("dp", "tp")},
+                     "gn": [first["gn"][0].tolist(), first["gn"][1]]}
+    return out
+
+
+def only_graft(dev, card) -> dict:
+    """`--only graft`: the graft phase with the dry run at the driver's
+    MULTICHIP size."""
+    return graft_phase(dev, card, GRAFT_RANKS_ONLY)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2289,7 +2470,8 @@ def main() -> int:
                         help="another checkout of the package (e.g. an earlier commit "
                              "unpacked by git archive) whose kernels are timed against "
                              "this one's; repeatable")
-    parser.add_argument("--only", choices=["posenet", "datasets", "parallel", "viz", "bench"],
+    parser.add_argument("--only", choices=["posenet", "datasets", "parallel", "viz", "bench",
+                                           "graft"],
                         help="build, then run this phase alone (a probe: no result line)")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
@@ -2310,7 +2492,7 @@ def main() -> int:
     if args.only:
         result = phase(args.only, {"posenet": posenet_phase, "datasets": datasets_phase,
                                    "parallel": only_parallel, "viz": viz_phase,
-                                   "bench": only_bench}[args.only],
+                                   "bench": only_bench, "graft": only_graft}[args.only],
                        dev, card)
         (ROOT / "build" / f"chip_smoke_{args.only}.json").write_text(json.dumps(
             {"card": card, args.only: result, "seconds": seconds}, indent=1, default=str))
@@ -2339,6 +2521,7 @@ def main() -> int:
     viz = phase("viz", viz_phase, dev, card)
     posenet = phase("posenet", posenet_phase, dev, card)
     benches = phase("bench", bench_phase, loader, frames, dev, card)
+    graft = phase("graft", graft_phase, dev, card)
     times = phase("times", times_phase, b1_in, b2_in, lc_args, loader, frames, dev, card)
     compare = phase("compare", compare_phase, args.compare, b1_in, b2_in, card)
 
@@ -2350,7 +2533,7 @@ def main() -> int:
          "highway": highway, "ct_icp": ct_icp, "profiles": profiles, "slam": slam,
          "cli": cli, "projective": projective_run, "voxel": voxel, "posenet": posenet,
          "datasets": datasets, "parallel": parallel, "sharded_b2": sharded, "viz": viz,
-         "bench": benches, "times": times,
+         "bench": benches, "graft": graft, "times": times,
          "compare": compare, "seconds": seconds},
         indent=1, default=str))
     b1_paths = {"aggregated": aggregated["launches"], "highway": highway["launches"],
@@ -2358,7 +2541,8 @@ def main() -> int:
                 **{name: run["launches"] for name, run in profiles.items()},
                 "kitti": datasets["runs"]["kitti"]["launches"],
                 "ct_icp_files": datasets["runs"]["ct_icp_files"]["launches"],
-                "multirun": parallel["multirun"]["launches"]}
+                "multirun": parallel["multirun"]["launches"],
+                "graft_entry": graft["entry"]["assoc_gn_launches"]}
 
     kernels = []
     for kname, run, result in (("assoc_gn", aggregated, compare_b1),
@@ -2378,7 +2562,8 @@ def main() -> int:
     lc_t = times["nn_argmin_loop_closure"]
     kernels[1]["launches_by_path"] = {"surfel": surfel["launches"],
                                       "loop_closure": slam["batch1"]["b2_launches"],
-                                      "sharded_surfel": parallel["sharded_surfel"]["launches"]}
+                                      "sharded_surfel": parallel["sharded_surfel"]["launches"],
+                                      "graft_dryrun_per_rank": graft["dryrun"]["nn_argmin_launches"]}
     sh_t = sharded["times"]
     kernels[1]["sharded_surfel_shape"] = {
         "m": sharded["compare"]["m"], "v": sharded["compare"]["v"], "ms": sh_t["wall_ms"],
@@ -2386,6 +2571,9 @@ def main() -> int:
         "bound_ms": sh_t["bound_ms"], "bound_by": sh_t["bound_by"],
         "roofline_share": sh_t["roofline_share"], "library_ms": sh_t["library_ms"],
         "max_abs_err": sharded["compare"]["max_abs_err"]}
+    gr_nn = graft["dryrun"]["nn_argmin"]
+    kernels[1]["graft_dryrun_shape"] = {"m": gr_nn["cases"][0]["m"], "v": gr_nn["cases"][0]["v"],
+                                        "max_abs_err": gr_nn["max_abs_err"]}
     kernels[1]["active_launches_by_path"] = {
         "surfel": surfel["active_launches"], "loop_closure": slam["batch1"]["b2_active_launches"]}
     kernels[1]["loop_closure_shape"] = {

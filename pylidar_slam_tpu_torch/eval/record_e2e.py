@@ -1,7 +1,7 @@
 """Records both champions' trajectories over the acceptance sequence into
 ``tests/fixtures/torch_e2e.npz`` (the port of ``scripts/record_e2e_ours.py``).
 
-    python -m pylidar_slam_tpu_torch.eval.record_e2e [--out PATH]
+    python -m pylidar_slam_tpu_torch.eval.record_e2e [--out PATH] [--expect-same OLD]
     python -m pylidar_slam_tpu_torch.eval.record_e2e --margin-seeds 1 2 3
 
 Run it on the card after any change on a champion path: the fixture carries
@@ -10,6 +10,10 @@ sources differs from the recorded one.  The fixture has the keys of
 ``ours_e2e.npz`` (``stamp``, ``seq_params``, ``gt_absolute``,
 ``{aggregated,surfel}_trajectory``, ``{aggregated,surfel}_tr_err``) and
 ``card``, the card's name and power limit as ``nvidia-smi`` prints them.
+
+``--expect-same OLD`` is for a change that leaves the champions' paths as
+they compute: every array but ``stamp`` and ``card`` must equal OLD's bit
+for bit, or nothing is written and the command fails.
 
 ``--margin-seeds`` records the champions over the same sequence drawn from
 other ``SyntheticConfig`` seeds and prints one JSON line per seed with each
@@ -103,12 +107,23 @@ def record(seed=None, device=None) -> dict:
     return out
 
 
+def compare_fixtures(new: dict, old: dict) -> dict:
+    """{key: equal bit for bit} for every array of either fixture but the
+    stamp and the card (a key in only one of them is unequal)."""
+    keys = (set(new) | set(old)) - {"stamp", "card"}
+    return {k: k in new and k in old and np.array_equal(np.asarray(new[k]), np.asarray(old[k]))
+            for k in sorted(keys)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=FIXTURE)
     parser.add_argument("--device", default=None,
                         help="cpu to run on the CPU (hours for the surfel champion)")
     parser.add_argument("--margin-seeds", type=int, nargs="+", default=None)
+    parser.add_argument("--expect-same", type=Path, default=None,
+                        help="a fixture whose arrays (all but stamp and card) the new "
+                             "recording must equal bit for bit")
     args = parser.parse_args(argv)
     if args.margin_seeds:
         bar = kdtree_bar()
@@ -121,6 +136,13 @@ def main(argv=None) -> int:
             print(json.dumps(line), flush=True)
         return 0
     out = record(None, args.device)
+    if args.expect_same is not None:
+        same = compare_fixtures(out, dict(np.load(args.expect_same)))
+        print(f"FIXTURE_COMPARE {json.dumps(same)}", flush=True)
+        if not all(same.values()):
+            print(f"the recording differs from {args.expect_same}; nothing written",
+                  flush=True)
+            return 1
     args.out.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(args.out, **out)
     print(f"code stamp {acceptance.code_stamp()}; wrote {args.out}")

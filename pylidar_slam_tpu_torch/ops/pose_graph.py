@@ -9,17 +9,21 @@
   and their Jacobians at the zero perturbation (right-multiplicative,
   X <- X Exp(dx)) come from ``torch.func.jacfwd`` under ``vmap``; H v
   products are one batched pass over the edges plus index adds.  The fixed
-  ``num_iters`` and ``cg_iters`` loops never wait for the host.
+  ``num_iters`` and ``cg_iters`` loops never wait for the host.  Given a
+  process group, each rank holds a slice of the edges (poses and priors
+  replicated), and the edge terms of the gradient, of the preconditioner
+  blocks and of every H v product are summed over the group.
 
 Absolute (GPS-style) constraints are unary priors with their own
 information.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def log_rotation(rot: torch.Tensor) -> torch.Tensor:
@@ -113,9 +117,17 @@ class PoseGraph(NamedTuple):
 def optimize_pose_graph(poses: torch.Tensor, graph: PoseGraph,
                         num_iters: int = 20, cg_iters: int = 50,
                         damping: float = 1.0e-6,
-                        fix_first: bool = True) -> torch.Tensor:
+                        fix_first: bool = True,
+                        group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """Optimizes (M, 4, 4) absolute poses against the graph's constraints
-    on their device, in their dtype."""
+    on their device, in their dtype.
+
+    With `group`, `graph`'s edges are this rank's slice of the edge set and
+    its priors are the whole set: the edge terms of g, of the block-Jacobi
+    blocks and of each H v are all-reduced over `group` (one all-reduce
+    each, as GSPMD's scatter-add collectives over an edge-sharded graph),
+    and the prior terms are added after it, once.  Every rank returns the
+    same poses."""
     from torch.func import jacfwd, vmap
 
     m = poses.shape[0]
@@ -146,6 +158,11 @@ def optimize_pose_graph(poses: torch.Tensor, graph: PoseGraph,
         out = torch.zeros((m, *values.shape[1:]), dtype=dtype, device=dev)
         return out.index_add_(0, idx, values)
 
+    def edge_sum(v):
+        if group is not None:
+            dist.all_reduce(v, group=group)
+        return v
+
     def mask_fixed(v):
         if not fix_first:
             return v
@@ -158,12 +175,12 @@ def optimize_pose_graph(poses: torch.Tensor, graph: PoseGraph,
         pres, pjac = vmap(prior_res_jac)(poses[pi], pz_inv)
 
         # gradient g = J^T I r scattered to poses
-        g = (scatter(ei, torch.einsum("epd,epq,eq->ed", ji, info, res))
-             + scatter(ej, torch.einsum("epd,epq,eq->ed", jj, info, res))
+        g = (edge_sum(scatter(ei, torch.einsum("epd,epq,eq->ed", ji, info, res))
+                      + scatter(ej, torch.einsum("epd,epq,eq->ed", jj, info, res)))
              + scatter(pi, torch.einsum("epd,epq,eq->ed", pjac, pinfo, pres)))
         # block-Jacobi preconditioner: per-pose 6x6 diagonal blocks
-        diag = (scatter(ei, torch.einsum("epa,epq,eqb->eab", ji, info, ji))
-                + scatter(ej, torch.einsum("epa,epq,eqb->eab", jj, info, jj))
+        diag = (edge_sum(scatter(ei, torch.einsum("epa,epq,eqb->eab", ji, info, ji))
+                         + scatter(ej, torch.einsum("epa,epq,eqb->eab", jj, info, jj)))
                 + scatter(pi, torch.einsum("epa,epq,eqb->eab", pjac, pinfo, pjac)))
         diag = diag + damping * eye6
         diag_inv = torch.linalg.inv_ex(diag + 1e-8 * eye6).inverse
@@ -174,8 +191,8 @@ def optimize_pose_graph(poses: torch.Tensor, graph: PoseGraph,
             ijv = torch.einsum("eab,eb->ea", info, jv)
             ipv = torch.einsum("eab,eb->ea", pinfo,
                                torch.einsum("eab,eb->ea", pjac, v[pi]))
-            out = (scatter(ei, torch.einsum("eba,eb->ea", ji, ijv))
-                   + scatter(ej, torch.einsum("eba,eb->ea", jj, ijv))
+            out = (edge_sum(scatter(ei, torch.einsum("eba,eb->ea", ji, ijv))
+                            + scatter(ej, torch.einsum("eba,eb->ea", jj, ijv)))
                    + scatter(pi, torch.einsum("eba,eb->ea", pjac, ipv)))
             return mask_fixed(out + damping * v)
 

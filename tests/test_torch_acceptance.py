@@ -9,6 +9,7 @@ and hold its stamp to the sources: a change on a champion path fails
 ``test_fixture_stamp_matches_current_code`` until the fixture is recorded
 again on the card.
 """
+import os
 import shutil
 import subprocess
 import sys
@@ -90,13 +91,36 @@ def test_fixture_stamp_matches_current_code(ours):
         f"stamp {current[:12]}: {RERECORD}")
 
 
+def test_expect_same_refuses_a_recording_that_moved(ours, tmp_path, monkeypatch):
+    """``record_e2e --expect-same``: a recording equal to the old fixture in
+    every array but the stamp and the card is written; one whose trajectory
+    moved by an ulp, or that lacks an array, is not, and the command fails."""
+    fixture = dict(ours)
+    assert all(record_e2e.compare_fixtures(fixture, fixture).values())
+    moved = fixture["surfel_trajectory"].copy()
+    moved[5, 0, 3] = np.nextafter(moved[5, 0, 3], np.inf)
+    missing = {k: v for k, v in fixture.items() if k != "gt_absolute"}
+    cases = [(dict(fixture, stamp=fixture["stamp"][::-1].copy(), card=np.array("cpu")), []),
+             (dict(fixture, surfel_trajectory=moved), ["surfel_trajectory"]),
+             (missing, ["gt_absolute"])]
+    for i, (recording, differs) in enumerate(cases):
+        same = record_e2e.compare_fixtures(recording, fixture)
+        assert [k for k, v in same.items() if not v] == differs
+        monkeypatch.setattr(record_e2e, "record", lambda seed, device, r=recording: r)
+        out = tmp_path / f"{i}.npz"
+        rc = record_e2e.main(["--out", str(out), "--expect-same", str(record_e2e.FIXTURE)])
+        assert (rc, out.exists()) == ((1, False) if differs else (0, True))
+
+
 def test_stamp_is_the_same_in_a_fresh_process():
     """No process state (JAX's x64 switch, which this suite's conftest sets,
     the torch build, the working directory) enters the stamp."""
     out = subprocess.run(
-        [sys.executable, "-c", "from pylidar_slam_tpu_torch.eval import acceptance; "
+        [sys.executable, "-c", "import torch; torch.set_num_threads(1); "
+                               "from pylidar_slam_tpu_torch.eval import acceptance; "
                                "print(acceptance.code_stamp())"],
-        cwd=REPO / "tests", env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"},
+        cwd=REPO / "tests", env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+                                 "OMP_NUM_THREADS": "1"},
         capture_output=True, text=True, timeout=300, check=True)
     assert out.stdout.strip() == acceptance.code_stamp()
 
@@ -135,6 +159,8 @@ def test_stamp_follows_the_sources(tmp_path, source, edit, changes):
 STEP_SCRIPT = """
 import dataclasses, sys
 import numpy as np
+import torch
+torch.set_num_threads(1)
 from pylidar_slam_tpu_torch.eval import acceptance
 from pylidar_slam_tpu_torch.ops.projection import SphericalProjection
 from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
@@ -159,7 +185,8 @@ for mod in list(sys.modules.values()):
 
 def test_stamp_covers_every_module_a_champion_step_loads():
     out = subprocess.run([sys.executable, "-c", STEP_SCRIPT], cwd=REPO, capture_output=True,
-                         text=True, timeout=600, check=True)
+                         env=dict(os.environ, OMP_NUM_THREADS="1"), text=True, timeout=600,
+                         check=True)
     loaded = {Path(f).resolve() for f in out.stdout.split()}
     assert any(f.name == "surfel_map.py" for f in loaded)
     missing = sorted(str(f.relative_to(acceptance.PACKAGE_DIR))

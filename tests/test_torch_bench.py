@@ -1,20 +1,22 @@
 """The port's measurement entry points against the JAX repository's: the
 bench configuration against the root ``bench.build_icp_config`` and the
-champion, and ``bench``, ``bench_surfel`` and ``bench_pipeline`` run on the
-CPU at a tiny size, each printing one JSON line with the keys of the JAX
-script it ports (read from that script's source)."""
+champion, and ``bench`` run on the CPU at a tiny size, printing one JSON
+line with the keys of the root bench (read from its source).
+``bench_surfel`` and ``bench_pipeline`` are held the same way in
+test_torch_bench_surfel.py and test_torch_bench_pipeline.py (one file per
+bench, so that parallel workers take them apart)."""
 import ast
 import dataclasses
 import json
 import os
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
 import bench as root_bench
 
+from test_torch_odometry import _one_torch_thread  # noqa: F401
 from pylidar_slam_tpu_torch import bench, bench_pipeline, bench_surfel
 from pylidar_slam_tpu_torch.dataset.synthetic import (SyntheticConfig,
                                                       SyntheticDatasetLoader)
@@ -139,33 +141,3 @@ def test_bench_timed_frames_are_whole_batches():
     s = bench.Settings(batch=12, warmup=13)
     assert len(bench.timed_frames(list(range(253)), s)) == 240
     assert len(bench.timed_frames(list(range(61)), s)) == 48
-
-
-@pytest.mark.parametrize("nn", ["hash", "exact"])
-def test_bench_surfel_prints_the_jax_scripts_line(clean_env, capsys, nn):
-    clean_env.setattr(acceptance, "SEQ_KW", dict(acceptance.SEQ_KW, **TINY))
-    for k, v in {"BENCH_DEVICE": "cpu", "SF_NN": nn, "SF_FRAMES": "6", "SF_BATCH": "2",
-                 "SF_REPEATS": "1", "SF_TGT": "1024", "SF_POINTS": "512"}.items():
-        clean_env.setenv(k, v)
-    result = bench_surfel.main()
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and json.loads(lines[0]) == result
-    assert list(result) == jax_script_keys("bench_surfel")
-    assert result["config"]["nn"] == nn and result["timed_frames"] == 6
-    assert result["value"] > 0 and len(result["rates"]) == 1
-    assert result["tr_err"] is None  # under 100 m
-
-
-def test_bench_pipeline_prints_the_jax_scripts_line(clean_env, capsys):
-    items, loader = _tiny_frames(12, speed=0.5)
-    clean_env.setattr(bench_pipeline, "load", lambda env: (items, loader.projector()))
-    for k, v in {"BENCH_DEVICE": "cpu", "FP_BATCH": "4", "FP_WARMUP_FRAMES": "4",
-                 "FP_COOLDOWN_FRAMES": "2", "FP_REPEATS": "1"}.items():
-        clean_env.setenv(k, v)
-    result = bench_pipeline.main()
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and json.loads(lines[0]) == result
-    assert list(result) == jax_script_keys("bench_pipeline")
-    assert result["timed_frames"] == 6 and result["runs"] == [result["value"]]
-    assert result["value"] > 0
-    assert np.isfinite(result["pipeline_ms_per_flush"]["dispatch"])

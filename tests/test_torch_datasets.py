@@ -168,6 +168,33 @@ def test_loader_items_match_jax(data, name):
         assert gt.dtype == rgt.dtype and gt.tobytes() == rgt.tobytes()
 
 
+def test_urban_loco_gt_cli_matches_the_jax_script(data, tmp_path, monkeypatch):
+    """``python -m pylidar_slam_tpu_torch.dataset.generate_urban_loco_gt``
+    and ``scripts/generate_urban_loco_gt.py`` over copies of the fabricated
+    bags write the same ground truth, byte for byte."""
+    import runpy
+    import shutil
+    written = []
+    for name in ("jax", "port"):
+        root = tmp_path / name
+        shutil.copytree(data["base"] / "urban_loco", root)
+        for seq in (UL_SEQ, CA_SEQ):
+            (root / f"{seq}.poses.txt").unlink(missing_ok=True)
+        args = ["--root_dir", str(root), "--sequences", UL_SEQ, CA_SEQ]
+        if name == "jax":
+            script = ROOT / "scripts" / "generate_urban_loco_gt.py"
+            monkeypatch.setattr(sys, "argv", [str(script), *args])
+            runpy.run_path(str(script), run_name="__main__")
+        else:
+            proc = subprocess.run(
+                [sys.executable, "-m", "pylidar_slam_tpu_torch.dataset.generate_urban_loco_gt",
+                 *args], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                env=dict(os.environ, OMP_NUM_THREADS="1"))
+            assert proc.returncode == 0, proc.stderr[-3000:]
+        written.append([(root / f"{seq}.poses.txt").read_bytes() for seq in (UL_SEQ, CA_SEQ)])
+    assert all(written[0]) and written[0] == written[1]
+
+
 def test_kitti_numpy_reader_matches_jax(data, monkeypatch):
     """Without the native library both packages read KITTI scans through
     numpy's ``correct_scan``, which keeps the NaN rows: bit for bit."""
@@ -407,7 +434,7 @@ def test_kitti_cli_matches_run_py(tmp_path, monkeypatch):
     proc = subprocess.run(
         [sys.executable, "-m", "pylidar_slam_tpu_torch.run", *argv, "device=cpu",
          f"log_dir={tmp_path / 'torch'}"], cwd=ROOT, capture_output=True, text=True,
-        timeout=600, env=dict(os.environ))
+        timeout=600, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "on cpu" in proc.stderr
     sys.path.insert(0, str(ROOT))

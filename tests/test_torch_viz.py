@@ -317,7 +317,7 @@ def test_replay_module_runs_as_a_script(port_run):
 
 
 def test_trainer_visualize_writes_range_images(tmp_path):
-    from test_torch_training import _tiny_trainer
+    from test_torch_training_loop import _tiny_trainer
     tr = _tiny_trainer(tmp_path, visualize=True, tensorboard_image_frequency=1,
                        do_eval=False)
     tr.init()

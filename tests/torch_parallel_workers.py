@@ -1,4 +1,5 @@
-"""Rank functions of tests/test_torch_parallel.py, run on spawned ranks by
+"""Rank functions of tests/test_torch_parallel.py and
+tests/test_torch_graft.py, run on spawned ranks by
 ``pylidar_slam_tpu_torch.parallel.launch.run_ranks`` (gloo on the CPU).
 
 This module imports torch and the port only: each rank imports it afresh.
@@ -126,3 +127,9 @@ def four_ranks(rank, world, gn_args, train_args):
     """The 4-rank cases: the GN step, and dp=2 x tp=2 training."""
     return {"gn": gn_step(rank, world, *gn_args),
             "dp_tp": train_step(rank, world, *train_args)}
+
+
+def pose_graph_one_rank(rank, world, graph):
+    """The dry run's edge-sharded pose graph on a group of one rank."""
+    from pylidar_slam_tpu_torch.graft_entry import sharded_pose_graph
+    return sharded_pose_graph(torch.device("cpu"), rank, world, graph)
