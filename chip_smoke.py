@@ -113,6 +113,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    at most the JAX package's CPU figure + 0.1 pt, scans/s; one step under
    sync-debug "error" and under the profiler; neither kernel is on the
    projective or the voxel path, and both phases check that neither ran;
+13b. codecs: the acceptance sequence on de-calibrated beams (0.1 degree
+   jitter, 140 frames at 64x1024): each upload codec's frame decoded on the
+   card and on the CPU (rimg, rimg16, rimg8, rimg12, packed, int16: the same
+   validity, points within 2e-5 m); the aggregated champion (batch 12,
+   66,560 points) under rimg, rimg16, rimg12, packed, and int16 steps of
+   4 mm without and with dither: B1's 1,112 launches, ATE < 0.05 m, tr_err at
+   most the JAX package's on the same run on the CPU + 0.1 pt
+   (``scripts/jax_cpu_codec_bars.py``), scans/s, one batched step under
+   sync-debug "error"; the surfel champion under rimg: B2's 2,780 launches
+   and the same kind of bar; the port's bench on this loader (not
+   grid-regular: its default upload is rimg) at the ``bench`` phase's size,
+   its line naming rimg and B1's launches counted;
 14. posenet: the deep-learning track at 64x1024 on 40 synthetic frames
    loaded once: ``python -m pylidar_slam_tpu_torch.train dataset=synthetic
    dataset.num_frames=40 num_epochs=8 batch_size=8`` (supervised
@@ -176,7 +188,7 @@ pylidar_slam_tpu_torch.eval.record_e2e``: the same code stamp
 recorded value, the largest translation gap printed.
 
 ``--only NAME`` builds and runs one phase alone (a probe, no result line):
-``posenet``, ``datasets``, ``parallel``, ``viz``, ``bench``, which runs
+``posenet``, ``datasets``, ``parallel``, ``viz``, ``codecs``, ``bench``, which runs
 the three benches at their own defaults (``bench`` also with the kdtree and
 voxel maps), or ``graft``, which runs the dry run at 8 ranks (the driver's
 MULTICHIP size).
@@ -301,8 +313,27 @@ CLI_TR_ERR, CLI_ATE_M = 0.01, 0.05
 # The projective and voxel maps' bars: the JAX package's tr_err on the same
 # run on the CPU (scripts/jax_cpu_map_bars.py) + 0.1 pt, and ATE < 0.05 m.
 PROJECTIVE_OVERRIDES = CLI_OVERRIDES + ["slam/odometry/local_map=projective"]
-JAX_CPU_TR_ERR = {"projective": 0.0010508689764278157, "voxel": 0.00048665772964472185}
 MAP_ATE_M = 0.05
+# The codecs phase: the acceptance sequence on de-calibrated beams (the
+# sensors the per-pixel codecs are for), the aggregated champion under each
+# upload codec and the surfel champion under rimg, with the same kind of bars.
+CODEC_KW = dict(acceptance.SEQ_KW, beam_jitter_deg=0.1)
+CODEC_RUNS = {"rimg": {"upload_format": "rimg"}, "rimg16": {"upload_format": "rimg16"},
+              "rimg12": {"upload_format": "rimg12"}, "packed": {"upload_format": "packed"},
+              "int16": {"upload_format": "f32", "upload_quantization": 0.004},
+              "int16_dither": {"upload_format": "f32", "upload_quantization": 0.004,
+                               "upload_dither": True}}
+# The JAX package's tr_err on each run on the CPU: scripts/jax_cpu_map_bars.py
+# (projective, voxel) and scripts/jax_cpu_codec_bars.py (the codecs phase).
+JAX_CPU_TR_ERR = {"projective": 0.0010508689764278157, "voxel": 0.00048665772964472185,
+                  "aggregated_rimg": 0.0006670670714887546,
+                  "aggregated_rimg16": 0.0004520110694715823,
+                  "aggregated_rimg12": 0.004980074871092508,
+                  "aggregated_packed": 0.0018014607368871012,
+                  "aggregated_int16": 0.0017627484052750116,
+                  "aggregated_int16_dither": 0.0010772341778251177,
+                  "surfel_rimg": 0.00026654895188508353}
+DECODE_TOL = 2e-5  # m: a decoded point on the card against the CPU's
 # The deep track: the JAX package's learning pin (tests/test_training.py:43-89,
 # supervised, 8 epochs at batch 8 over 40 frames; deep odometry must beat the
 # identity trajectory's ATE by 3x) at 64x1024 with 131,072 padded points.
@@ -1202,6 +1233,114 @@ def voxel_phase(loader, frames, dev, card) -> dict:
     _no_kernel_launches("voxel")
     sync_check("voxel", odom, frames[-1])
     out["step"] = step_profile(f"voxel {card}", odom, frames[-1])
+    return out
+
+
+def decode_check(frame, proj, dev) -> dict:
+    """Each codec's frame decoded on the card and on the CPU by the port's
+    own code: the same validity, points within DECODE_TOL."""
+    pts = np.asarray(frame["numpy_pc"], np.float32)[:, :3]
+    bufs = {"rimg": projection.np_encode_range_image(pts, proj, planes=False),
+            "rimg16": projection.np_encode_range_image(pts, proj, sub16=True, planes=False),
+            "rimg8": projection.np_encode_range_image(pts, proj),
+            "rimg12": projection.np_encode_rimg12(pts, proj),
+            "packed": projection.np_encode_packed_upload(pts[~np.isnan(pts).any(axis=1)],
+                                                         proj),
+            "int16": np.round(pts[~np.isnan(pts).any(axis=1)] / 0.004).astype(np.int16)}
+    out = {}
+    for fmt, buf in bufs.items():
+        padded = np.zeros((buf.shape[0] + 1024, buf.shape[1]), buf.dtype)
+        padded[:buf.shape[0]] = buf
+        host = torch.from_numpy(padded)
+        mask = torch.ones(host.shape[0] * (4 if fmt == "rimg12" else 1), dtype=torch.bool)
+        cpu = am.dequant_upload(host, mask, proj, 0.004)
+        card = am.dequant_upload(host.to(dev), mask.to(dev), proj, 0.004)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(card[1].cpu(), cpu[1]))
+        err = float((card[0].cpu() - cpu[0]).abs().max())
+        out[fmt] = {"bytes": int(buf.nbytes), "valid": int(cpu[1].sum()),
+                    "same_validity": same, "max_abs_err_m": err}
+        if not same or not err <= DECODE_TOL or out[fmt]["valid"] < 10000:
+            raise AssertionError(f"codecs: {fmt} decoded on the card: {out[fmt]}")
+    log("[codecs] decoders on the card against the CPU: " + ", ".join(
+        f"{f} {o['bytes']} B, {o['valid']} points, max |err| {o['max_abs_err_m']:.2e} m"
+        for f, o in out.items()) + f" (bar {DECODE_TOL} m, the same validity)")
+    return out
+
+
+def batch_sync_check(name, odom, frames) -> None:
+    """One batched step of `odom` on `frames` (one batch) under
+    ``torch.cuda.set_sync_debug_mode("error")``; the batch is encoded and
+    uploaded before the mode is set."""
+    bufs = [odom._compact_host_buffer(np.asarray(f["numpy_pc"])) for f in frames]
+    pts, msks = odom._upload(odom._stack(bufs)), odom._ones_mask(len(bufs))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = odom._batch_step(odom._map_state, odom._delta_since_update,
+                               odom.last_rpose_device, pts, msks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out[3]).all()):
+        raise AssertionError(f"{name}: the checked batch's poses are not finite")
+    log(f"[sync] {name}: one batched step of {len(bufs)} frames under "
+        f"set_sync_debug_mode('error'), no host sync")
+
+
+def codecs_phase(dev, card) -> dict:
+    """The upload codecs on the card: each decoder against the CPU's; the
+    aggregated champion under each codec and the surfel champion under rimg
+    over the acceptance sequence on de-calibrated beams (launch counts, ATE,
+    tr_err against the JAX package's CPU figure + 0.1 pt, scans/s with
+    set-up, one batched step under sync-debug "error"); the port's bench at
+    an irregular loader's default (rimg)."""
+    loader, frames = load_frames(CODEC_KW)
+    n = len(frames)
+    out = {"decoders": decode_check(frames[0], loader.projector(), dev)}
+    agg = acceptance.champion_configs()["aggregated"]
+    for name, over in CODEC_RUNS.items():
+        cfg = dataclasses.replace(agg, **over)
+        b1.assoc_gn.launches = 0
+        b2.nn_argmin.launches = 0
+        odom, rel, elapsed = run_sequence(cfg, loader, frames, dev)
+        launches, nn = b1.assoc_gn.launches, b2.nn_argmin.launches
+        expected = cfg.max_num_alignments * (n - 1)
+        m = metrics(name, rel, loader, n)
+        run = {"overrides": over, "launches": launches, "scans_per_s": n / elapsed, **m}
+        run.update(_map_bar(f"aggregated_{name}", m, n / elapsed, card,
+                            f" (with set-up); assoc_gn launches {launches} "
+                            f"(expected {expected})"))
+        if launches != expected or nn:
+            raise AssertionError(f"codecs {name}: assoc_gn {launches}, nn_argmin {nn}")
+        batch_sync_check(f"aggregated {name}", odom, frames[-cfg.batch_size:])
+        out[f"aggregated_{name}"] = run
+
+    cfg = dataclasses.replace(acceptance.champion_configs()["surfel"], upload_format="rimg")
+    b1.assoc_gn.launches = 0
+    b2.nn_argmin.launches = 0
+    _, rel, elapsed = run_sequence(cfg, loader, frames, dev)
+    launches, l1 = b2.nn_argmin.launches, b1.assoc_gn.launches
+    expected = cfg.max_num_alignments * (n - 1)
+    m = metrics("surfel_rimg", rel, loader, n)
+    out["surfel_rimg"] = {"launches": launches, "scans_per_s": n / elapsed, **m}
+    out["surfel_rimg"].update(_map_bar(
+        "surfel_rimg", m, n / elapsed, card,
+        f" (with set-up); nn_argmin launches {launches} (expected {expected})"))
+    if launches != expected or l1:
+        raise AssertionError(f"codecs surfel_rimg: nn_argmin {launches}, assoc_gn {l1}")
+
+    # the port's bench on this loader (grid_regular False): its default is rimg
+    s = bench.Settings(**BENCH_SMOKE["bench"])
+    bframes = [f["numpy_pc"] for f in frames[:s.frames]]
+    result, l1, l2 = _counted(bench.run, s, bframes, loader, "synthetic-jittered")
+    _bench_line("bench", result, card)
+    if loader.grid_regular or "upload=rimg," not in result["metric"]:
+        raise AssertionError(f"codecs bench: {result['metric']}")
+    stepped = s.warmup - 1 + s.repeats * len(bench.timed_frames(bframes, s)) + 5 * s.batch
+    _expect("bench on jittered beams", "assoc_gn", l1, agg.max_num_alignments * stepped)
+    _expect("bench on jittered beams", "nn_argmin", l2, 0)
+    out["bench"] = {"line": result, "assoc_gn_launches": l1}
     return out
 
 
@@ -2471,7 +2610,7 @@ def main() -> int:
                              "unpacked by git archive) whose kernels are timed against "
                              "this one's; repeatable")
     parser.add_argument("--only", choices=["posenet", "datasets", "parallel", "viz", "bench",
-                                           "graft"],
+                                           "graft", "codecs"],
                         help="build, then run this phase alone (a probe: no result line)")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
@@ -2492,7 +2631,8 @@ def main() -> int:
     if args.only:
         result = phase(args.only, {"posenet": posenet_phase, "datasets": datasets_phase,
                                    "parallel": only_parallel, "viz": viz_phase,
-                                   "bench": only_bench, "graft": only_graft}[args.only],
+                                   "bench": only_bench, "graft": only_graft,
+                                   "codecs": codecs_phase}[args.only],
                        dev, card)
         (ROOT / "build" / f"chip_smoke_{args.only}.json").write_text(json.dumps(
             {"card": card, args.only: result, "seconds": seconds}, indent=1, default=str))
@@ -2510,6 +2650,7 @@ def main() -> int:
     cli = phase("cli", cli_phase, card)
     projective_run = phase("projective", projective_phase, dev, card)
     voxel = phase("voxel", voxel_phase, loader, frames, dev, card)
+    codecs = phase("codecs", codecs_phase, dev, card)
     highway = phase("highway", highway_phase, dev, card)
     rs_loader, rs_frames = phase("setup rolling shutter", load_frames,
                                  acceptance.ROLLING_SHUTTER_KW)
@@ -2531,7 +2672,8 @@ def main() -> int:
         {"card": card, "build": build, "compare_b1": compare_b1,
          "compare_b2": compare_b2, "aggregated": aggregated, "surfel": surfel,
          "highway": highway, "ct_icp": ct_icp, "profiles": profiles, "slam": slam,
-         "cli": cli, "projective": projective_run, "voxel": voxel, "posenet": posenet,
+         "cli": cli, "projective": projective_run, "voxel": voxel, "codecs": codecs,
+         "posenet": posenet,
          "datasets": datasets, "parallel": parallel, "sharded_b2": sharded, "viz": viz,
          "bench": benches, "graft": graft, "times": times,
          "compare": compare, "seconds": seconds},
@@ -2542,7 +2684,9 @@ def main() -> int:
                 "kitti": datasets["runs"]["kitti"]["launches"],
                 "ct_icp_files": datasets["runs"]["ct_icp_files"]["launches"],
                 "multirun": parallel["multirun"]["launches"],
-                "graft_entry": graft["entry"]["assoc_gn_launches"]}
+                "graft_entry": graft["entry"]["assoc_gn_launches"],
+                **{f"codecs_{name}": codecs[f"aggregated_{name}"]["launches"]
+                   for name in CODEC_RUNS}}
 
     kernels = []
     for kname, run, result in (("assoc_gn", aggregated, compare_b1),
@@ -2563,7 +2707,8 @@ def main() -> int:
     kernels[1]["launches_by_path"] = {"surfel": surfel["launches"],
                                       "loop_closure": slam["batch1"]["b2_launches"],
                                       "sharded_surfel": parallel["sharded_surfel"]["launches"],
-                                      "graft_dryrun_per_rank": graft["dryrun"]["nn_argmin_launches"]}
+                                      "graft_dryrun_per_rank": graft["dryrun"]["nn_argmin_launches"],
+                                      "codecs_surfel_rimg": codecs["surfel_rimg"]["launches"]}
     sh_t = sharded["times"]
     kernels[1]["sharded_surfel_shape"] = {
         "m": sharded["compare"]["m"], "v": sharded["compare"]["v"], "ms": sh_t["wall_ms"],

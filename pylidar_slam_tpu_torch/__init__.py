@@ -11,9 +11,10 @@ normal-equation kernel in CUDA (``ops.kernels.assoc_gn``), and with the
 surfel ("kdtree") map, on the exact 1-NN kernel in CUDA
 (``ops.kernels.nn_argmin``).  ``parallel`` runs the point-sharded surfel
 odometry and data- and tensor-parallel training over ``torch.distributed``
-ranks; ``viz`` writes the map's PLY, views and HTML viewer.  Only what
-ROADMAP.md leaves out (the tunnel's upload formats) raises
-``NotImplementedError``.
+ranks; ``viz`` writes the map's PLY, views and HTML viewer.  Every upload
+codec of the JAX package (f32, packed, rimg, rimg16, rimg8, rimg12 and
+int16 with dither) is ported, and a PoseNet checkpoint written by the JAX
+trainer loads without JAX (``models.from_jax.read_jax_checkpoint``).
 """
 
 __version__ = "0.1.0"

@@ -21,10 +21,11 @@ Environment: the root bench's ``BENCH_FRAMES`` (253), ``BENCH_BATCH`` (12),
 ``BENCH_WARMUP`` (batch + 1), ``BENCH_VOXEL`` (0: no host grid sample),
 ``BENCH_WORKERS`` (3 prep threads), ``BENCH_REPEATS`` (5), ``BENCH_MAP``
 (aggregated, kdtree or voxel), ``BENCH_FORMAT`` (rimg8 on a grid-regular
-loader), ``BENCH_ITERS``, ``BENCH_REASSOC``, ``BENCH_REASSOC_MOTION``,
-``BENCH_SCHEME``, ``BENCH_SIGMA``, ``BENCH_CAP``, ``BENCH_MODEL_NORMALS``;
-and ``BENCH_DEVICE=cpu``, the only way to run on the CPU.  A format or
-option the port leaves out (``rimg``, ``BENCH_QUANT`` > 0) raises.
+loader, else rimg; or f32, packed, rimg16, rimg12), ``BENCH_QUANT`` (int16 upload
+step in meters, 0 = off), ``BENCH_ITERS``, ``BENCH_REASSOC``,
+``BENCH_REASSOC_MOTION``, ``BENCH_SCHEME``, ``BENCH_SIGMA``, ``BENCH_CAP``
+(66,560 for rimg8 and rimg12, else 65,536), ``BENCH_MODEL_NORMALS``; and
+``BENCH_DEVICE=cpu``, the only way to run on the CPU.
 """
 from __future__ import annotations
 
@@ -43,7 +44,6 @@ import torch
 from pylidar_slam_tpu_torch.slam.odometry_runner import resolve_device
 
 REFERENCE_SCANS_PER_SEC = 1000.0 / 187.256  # 5.34 scans/s (BASELINE.md)
-PORTED_FORMATS = ("rimg8", "f32")
 
 
 @dataclass
@@ -111,15 +111,6 @@ def build_icp_config(bench_map: str, bench_format: str):
     from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import \
         ICPFrameToModelConfig
     env = os.environ
-    if bench_format not in PORTED_FORMATS:
-        raise NotImplementedError(
-            f"BENCH_FORMAT={bench_format}: the port uploads only "
-            f"{' and '.join(PORTED_FORMATS)} (ROADMAP.md, 'What the port leaves out')")
-    quant = float(env.get("BENCH_QUANT", "0.0"))
-    if quant > 0.0:
-        raise NotImplementedError(
-            f"BENCH_QUANT={quant}: int16-quantized uploads are left out of the "
-            f"port (ROADMAP.md, 'What the port leaves out')")
     if bench_map == "kdtree":
         local_map = {"type": "kdtree_local_map",
                      "local_map_size": 30, "points_per_frame": 4096,
@@ -151,12 +142,13 @@ def build_icp_config(bench_map: str, bench_format: str):
             "sigma": float(env.get("BENCH_SIGMA",
                                    "0.2" if bench_map == "kdtree" else "0.4")),
             "max_iters": 1}},
-        # rimg8 buffers carry (H+W)/2 plane rows past H*W
+        # rimg8 buffers carry (H+W)/2 plane rows past H*W; rimg12's decode
+        # to 66,560 points at 64x1024
         num_points_padded=int(env.get(
-            "BENCH_CAP", "66560" if bench_format == "rimg8" else "65536")),
+            "BENCH_CAP", "66560" if bench_format in ("rimg8", "rimg12") else "65536")),
         data_key="numpy_pc",
         batch_size=int(env.get("BENCH_BATCH", "12")),
-        upload_quantization=quant,
+        upload_quantization=float(env.get("BENCH_QUANT", "0.0")),
         upload_format=bench_format)
 
 
@@ -268,8 +260,7 @@ def run(s: Settings, frames: list, loader, source: str) -> dict:
     from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
     device = resolve_device(s.device)
     # rimg8's per-row / per-column mean offsets are exact only on a
-    # grid-regular firing pattern: another loader's default is per-pixel
-    # rimg, which the port leaves out (build_icp_config raises).
+    # grid-regular firing pattern: another loader's default is per-pixel rimg
     bench_format = s.bench_format or ("rimg8" if loader.grid_regular else "rimg")
     icp_cfg = build_icp_config(s.bench_map, bench_format)
     odom = ICPFrameToModel(icp_cfg, projector=loader.projector(), device=device)
@@ -324,7 +315,7 @@ def run(s: Settings, frames: list, loader, source: str) -> dict:
     proj = odom.projector
     return {
         "metric": f"ICP odometry throughput ({source}, {proj.height}x{proj.width}, "
-                  f"map={s.bench_map}, accuracy config)",
+                  f"map={s.bench_map}, upload={icp_cfg.upload_format}, accuracy config)",
         "value": round(scans_per_sec, 2),
         "unit": "scans/sec",
         "vs_baseline": round(scans_per_sec / REFERENCE_SCANS_PER_SEC, 2),

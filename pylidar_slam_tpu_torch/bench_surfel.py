@@ -12,7 +12,8 @@ with the JAX script's keys: ``metric``, ``value`` (best pass), ``unit``,
 
 Environment (the JAX script's): ``SF_ITERS`` (10), ``SF_BATCH`` (8),
 ``SF_NN`` (hash; ``exact`` runs kernel B2), ``SF_REASSOC`` (100),
-``SF_REASSOC_MOTION`` (0.2), ``SF_FORMAT`` (rimg8), ``SF_FRAMES`` (140),
+``SF_REASSOC_MOTION`` (0.2), ``SF_FORMAT`` (rimg8; any upload format, padded
+to 66,560 points for rimg8 and rimg12, else 65,536), ``SF_FRAMES`` (140),
 ``SF_NORMALS`` (knn), ``SF_POINTS`` (4096), ``SF_MAP`` (30), ``SF_VOXEL``,
 ``SF_TGT``, ``SF_REANCHOR``, ``SF_THRESH_TRANS``, ``SF_THRESH_ROT``,
 ``SF_REPEATS`` (3), ``SF_MAP_TYPE`` (kdtree or voxel) with ``SF_ND`` and
@@ -65,7 +66,8 @@ def build_config(env=os.environ):
         local_map=local_map,
         alignment={"gauss_newton_config": {"scheme": "neighborhood",
                                            "sigma": 0.2, "max_iters": 1}},
-        num_points_padded=66560 if fmt == "rimg8" else 65536, data_key="numpy_pc",
+        num_points_padded=66560 if fmt in ("rimg8", "rimg12") else 65536,
+        data_key="numpy_pc",
         upload_format=fmt, batch_size=int(env.get("SF_BATCH", "8")))
 
 

@@ -27,7 +27,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 # shared host encoder's source, relative to the repository.
 STAMP_MODULES = (
     "__init__.py", "config.py", "eval/__init__.py", "eval/acceptance.py",
-    "models/__init__.py", "models/posenet.py", "models/resnet.py",
+    "models/__init__.py", "models/from_jax.py", "models/posenet.py", "models/resnet.py",
     "ops/*.py", "ops/kernels/*.py", "slam/__init__.py",
     "slam/initialization.py", "slam/odometry/*.py", "training/__init__.py",
     "training/prediction_modules.py", "utils/__init__.py", "utils/build.py",

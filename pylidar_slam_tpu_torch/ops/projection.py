@@ -1,4 +1,4 @@
-"""Spherical projection and the rimg8 range-image upload codec (torch port of
+"""Spherical projection and the compact upload codecs (torch port of
 ``pylidar_slam_tpu.ops.projection``).
 
 Projection model (the reference's, slam/common/projection.py):
@@ -10,6 +10,18 @@ Projection model (the reference's, slam/common/projection.py):
     row   = (1 - (phi + |fov_down|) / fov) * H
 
 Images are channels-last ``(H, W, C)``, as in the JAX package.
+
+Upload codecs (host encoder in numpy or the shared native library, device
+decoder in PyTorch ops; each byte for byte the JAX package's):
+
+* ``packed`` -- (N, 4) uint16 per point: pixel id, 2 mm range steps and
+  the f16 angular offsets from the pixel's center ray (H*W <= 65536);
+* ``rimg`` / ``rimg16`` -- (H*W, 3|4) uint8 z-buffered range image with
+  4+4-bit / 8+8-bit per-pixel sub-pixel offsets;
+* ``rimg8`` -- (H*W + (H+W+1)//2, 2) uint8 range image with per-row and
+  per-column mean offset planes (exact on a regular firing pattern);
+* ``rimg12`` -- four 12-bit 3 cm range steps per 6-byte row plus rimg8's
+  planes, padded to a multiple of 256 rows.
 """
 from __future__ import annotations
 
@@ -149,29 +161,96 @@ def vertex_map_to_points(vmap: torch.Tensor) -> torch.Tensor:
     return vmap.reshape(*shape[:-3], shape[-3] * shape[-2], shape[-1])
 
 
+def np_encode_packed_upload(pts: np.ndarray, proj: SphericalProjection) -> np.ndarray:
+    """Packs an (N, 3) cloud into the 8 B/point upload: (N', 4) uint16 rows
+    [pixel_id, range_steps, f16(dtheta), f16(dphi)], the angular offsets
+    taken from the assigned pixel's center ray.
+
+    Out-of-image and out-of-range points are dropped.  Needs H*W <= 65536
+    (the caller falls back to f32 otherwise).
+    """
+    h, w = proj.height, proj.width
+    assert h * w <= 65536, "packed upload needs uint16 pixel ids"
+    _, fov_down, fov = _fovs(proj)
+    r = np.linalg.norm(pts, axis=-1)
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    r_safe = np.where(r > 0, r, 1.0)
+    theta = -np.arctan2(y, x)
+    phi = np.arcsin(np.clip(z / r_safe, -1.0, 1.0))
+    colf = 0.5 * (theta / math.pi + 1.0) * w
+    rowf = (1.0 - (phi + abs(fov_down)) / fov) * h
+    row = np.round(rowf)
+    # colf lies in (0, w]; a column rounded to w is column 0's azimuth: wrap
+    # it instead of dropping a half-pixel wedge at the seam
+    col = np.round(colf) % w
+    keep = (r > 0) & (r < 65535 * PACKED_RANGE_STEP) & (row >= 0) & (row <= h - 1)
+    row, col = row[keep], col[keep]
+    out = np.empty((int(keep.sum()), 4), np.uint16)
+    out[:, 0] = (row * w + col).astype(np.uint16)
+    out[:, 1] = np.maximum(np.round(r[keep] / PACKED_RANGE_STEP), 1.0).astype(np.uint16)
+    theta_c = (2.0 * col / w - 1.0) * math.pi
+    phi_c = (1.0 - row / h) * fov - abs(fov_down)
+    # the azimuth offset wrapped into [-pi, pi): seam-wrapped points keep a
+    # half-pixel-scale offset (the decode's trig is 2 pi-periodic)
+    dtheta = (theta[keep] - theta_c + math.pi) % (2.0 * math.pi) - math.pi
+    out[:, 2] = dtheta.astype(np.float16).view(np.uint16)
+    out[:, 3] = (phi[keep] - phi_c).astype(np.float16).view(np.uint16)
+    return out
+
+
+def decode_packed_upload(buf: torch.Tensor, proj: SphericalProjection):
+    """Device-side inverse of ``np_encode_packed_upload``.
+
+    Args:
+        buf: (N, 4) uint16 (or its int16 view) packed points, zero rows =
+            padding.
+    Returns:
+        (points (N, 3) float32, valid (N,) bool).
+    """
+    h, w = proj.height, proj.width
+    _, fov_down, fov = _fovs(proj)
+    # int16 view: the bits as they are, with ops every device supports
+    raw = buf.view(torch.int16)
+    pix = raw[:, 0].to(torch.int32) & 0xFFFF
+    steps = raw[:, 1].to(torch.int32) & 0xFFFF
+    dtheta = raw[:, 2].view(torch.float16).to(torch.float32)
+    dphi = raw[:, 3].view(torch.float16).to(torch.float32)
+    valid = steps > 0
+    row = torch.div(pix, w, rounding_mode="floor").to(torch.float32)
+    col = (pix % w).to(torch.float32)
+    theta = (2.0 * col / w - 1.0) * math.pi + dtheta
+    phi = (1.0 - row / h) * fov - abs(fov_down) + dphi
+    r = steps.to(torch.float32) * PACKED_RANGE_STEP
+    cos_phi = torch.cos(phi)
+    pts = torch.stack([r * cos_phi * torch.cos(theta),
+                       -r * cos_phi * torch.sin(theta),
+                       r * torch.sin(phi)], dim=-1)
+    return torch.where(valid[:, None], pts, torch.zeros_like(pts)), valid
+
+
 def np_encode_range_image(pts: np.ndarray, proj: SphericalProjection,
                           range_step: float = PACKED_RANGE_STEP,
+                          sub16: bool = False,
                           planes: bool = True) -> np.ndarray:
-    """Encodes an (N, 3) cloud into the rimg8 upload (host side).
+    """Encodes an (N, 3) cloud into a fixed-shape range-image upload (host
+    side): a z-buffered spherical range image (the closest point wins its
+    pixel; uint16 little-endian range steps, 0 = empty).
 
-    Layout: (H*W + (H+W+1)//2, 2) uint8 -- a z-buffered range image (the
-    closest point wins its pixel; uint16 little-endian range steps, 0 =
-    empty) followed by the per-ROW mean elevation offsets (H bytes) and
-    per-COLUMN mean azimuth offsets (W bytes), 2 bytes per row.  Exact on a
-    regular firing pattern.  Uses the shared native encoder when it builds,
-    numpy otherwise.
+    * ``planes`` (rimg8, this port's default): (H*W + (H+W+1)//2, 2) uint8,
+      the range pixels followed by the per-ROW mean elevation offsets (H
+      bytes) and per-COLUMN mean azimuth offsets (W bytes), 2 bytes a row;
+    * else (H*W, 3) uint8 rows [r_lo, r_hi, sub] with 4+4-bit sub-pixel
+      offsets (rimg), or with `sub16` (H*W, 4) with 8+8-bit offsets
+      (rimg16); bin centers at ((q + 0.5) / bins - 0.53) pixels.
+
+    Uses the shared native encoder when it builds, numpy otherwise.
     """
-    if not planes:
-        raise NotImplementedError(
-            "Only the rimg8 (planes) range-image format is ported; the "
-            "per-pixel sub-offset formats are left out (ROADMAP.md, 'What "
-            "the port leaves out')")
     h, w = proj.height, proj.width
     fov_up, fov_down, fov = _fovs(proj)
 
     from pylidar_slam_tpu_torch.utils import native
-    out = native.encode_range_image_planes(pts, h, w, fov_up, fov_down,
-                                           range_step)
+    out = native.encode_range_image(pts, h, w, fov_up, fov_down, range_step,
+                                    sub16=sub16, planes=planes)
     if out is not None:
         return out
 
@@ -203,26 +282,43 @@ def np_encode_range_image(pts: np.ndarray, proj: SphericalProjection,
     dtheta = (theta - theta_c + math.pi) % (2.0 * math.pi) - math.pi
     dphi = phi - phi_c
 
-    out = np.zeros((h * w + (h + w + 1) // 2, 2), np.uint8)
+    if planes:
+        out = np.zeros((h * w + (h + w + 1) // 2, 2), np.uint8)
+        out[pix[order], 0] = (steps[order] & 0xFF).astype(np.uint8)
+        out[pix[order], 1] = (steps[order] >> 8).astype(np.uint8)
+        # Plane means over the pixel winners, matching what decodes.
+        win = np.full(h * w, -1, np.int64)
+        win[pix[order]] = order
+        wi = win[win >= 0]
+        wpix = np.nonzero(win >= 0)[0]
+        tq = dtheta[wi] / pw + 0.53
+        pq = dphi[wi] / ph + 0.47
+        row_sum = np.bincount(wpix // w, weights=pq, minlength=h)
+        row_cnt = np.bincount(wpix // w, minlength=h)
+        col_sum = np.bincount(wpix % w, weights=tq, minlength=w)
+        col_cnt = np.bincount(wpix % w, minlength=w)
+        row_mean = np.where(row_cnt > 0, row_sum / np.maximum(row_cnt, 1), 0.5)
+        col_mean = np.where(col_cnt > 0, col_sum / np.maximum(col_cnt, 1), 0.5)
+        tail = np.zeros(((h + w + 1) // 2) * 2, np.uint8)
+        tail[:h] = np.clip(np.floor(row_mean * 256.0), 0, 255).astype(np.uint8)
+        tail[h:h + w] = np.clip(np.floor(col_mean * 256.0), 0, 255).astype(np.uint8)
+        out[h * w:] = tail.reshape(-1, 2)
+        return out
+
+    bins = 256.0 if sub16 else 16.0
+    hi = 255 if sub16 else 15
+    # quantizer windows of the biased rounding above: dtheta/pw in
+    # [-0.53, 0.47), dphi/ph in (-0.47, 0.53] (rowf runs opposite to phi)
+    qt = np.clip(np.floor((dtheta / pw + 0.53) * bins), 0, hi).astype(np.uint8)
+    qp = np.clip(np.floor((dphi / ph + 0.47) * bins), 0, hi).astype(np.uint8)
+    out = np.zeros((h * w, 4 if sub16 else 3), np.uint8)
     out[pix[order], 0] = (steps[order] & 0xFF).astype(np.uint8)
     out[pix[order], 1] = (steps[order] >> 8).astype(np.uint8)
-    # Plane means over the pixel winners, matching what decodes.
-    win = np.full(h * w, -1, np.int64)
-    win[pix[order]] = order
-    wi = win[win >= 0]
-    wpix = np.nonzero(win >= 0)[0]
-    tq = dtheta[wi] / pw + 0.53
-    pq = dphi[wi] / ph + 0.47
-    row_sum = np.bincount(wpix // w, weights=pq, minlength=h)
-    row_cnt = np.bincount(wpix // w, minlength=h)
-    col_sum = np.bincount(wpix % w, weights=tq, minlength=w)
-    col_cnt = np.bincount(wpix % w, minlength=w)
-    row_mean = np.where(row_cnt > 0, row_sum / np.maximum(row_cnt, 1), 0.5)
-    col_mean = np.where(col_cnt > 0, col_sum / np.maximum(col_cnt, 1), 0.5)
-    tail = np.zeros(((h + w + 1) // 2) * 2, np.uint8)
-    tail[:h] = np.clip(np.floor(row_mean * 256.0), 0, 255).astype(np.uint8)
-    tail[h:h + w] = np.clip(np.floor(col_mean * 256.0), 0, 255).astype(np.uint8)
-    out[h * w:] = tail.reshape(-1, 2)
+    if sub16:
+        out[pix[order], 2] = qt[order]
+        out[pix[order], 3] = qp[order]
+    else:
+        out[pix[order], 2] = (qt[order] << 4) | qp[order]
     return out
 
 
@@ -244,35 +340,136 @@ def _separable_decode(steps: torch.Tensor, valid: torch.Tensor,
     return pts_img, valid
 
 
-def decode_range_image(buf: torch.Tensor, proj: SphericalProjection,
-                       range_step: float = PACKED_RANGE_STEP):
-    """Device-side inverse of ``np_encode_range_image`` for rimg8.
-
-    Args:
-        buf: (N >= H*W + (H+W+1)//2, 2) uint8, zero-padded past the tail.
-    Returns:
-        (points (N, 3) float32, valid (N,) bool); the first H*W rows are the
-        pixels in row-major order.
-    """
-    if buf.shape[1] != 2:
-        raise NotImplementedError(
-            "Only the rimg8 range-image format is ported (ROADMAP.md, 'What "
-            "the port leaves out')")
+def _plane_angles(tail: torch.Tensor, proj: SphericalProjection):
+    """rimg8 / rimg12's angle tables from their plane bytes (H row means,
+    then W column means): per-column theta (W,) and per-row phi (H,)."""
     h, w = proj.height, proj.width
     _, fov_down, fov = _fovs(proj)
-    n = buf.shape[0]
-    dev = buf.device
-    steps = buf[:, 0].to(torch.int32) | (buf[:, 1].to(torch.int32) << 8)
-    valid = (steps > 0) & (torch.arange(n, device=dev) < h * w)
-    pw = 2.0 * math.pi / w
-    ph = fov / h
-    tail = buf[h * w:h * w + (h + w + 1) // 2, :2].reshape(-1)
+    dev = tail.device
     rowq = tail[:h].to(torch.float32)
     colq = tail[h:h + w].to(torch.float32)
+    pw = 2.0 * math.pi / w
+    ph = fov / h
     col_idx = torch.arange(w, dtype=torch.float32, device=dev)
     row_idx = torch.arange(h, dtype=torch.float32, device=dev)
     theta_c = (2.0 * col_idx / w - 1.0) * math.pi + \
         ((colq + 0.5) / 256.0 - 0.53) * pw
     phi_r = (1.0 - row_idx / h) * fov - abs(fov_down) + \
         ((rowq + 0.5) / 256.0 - 0.47) * ph
-    return _separable_decode(steps, valid, theta_c, phi_r, h, w, n, range_step)
+    return theta_c, phi_r
+
+
+RIMG12_RANGE_STEP = 0.03  # 3 cm -> 12 bits cover 122.8 m
+
+
+def np_encode_rimg12(pts: np.ndarray, proj: SphericalProjection) -> np.ndarray:
+    """1.5 B/pixel range-image upload: FOUR pixels' 12-bit range steps (3 cm
+    each) per 6-byte row, then rimg8's per-row / per-column offset planes,
+    padded to a multiple of 256 rows: (256 * ceil((H*W/4 + ceil((H+W)/6))
+    / 256), 6) uint8, whose decoded capacity (4 x rows) is 66,560 at
+    64x1024.
+
+    Needs H*W % 4 == 0.  Ranges beyond 4095 x 3 cm are dropped.  Built on
+    the rimg8 encoder, repacked on the host.
+    """
+    h, w = proj.height, proj.width
+    assert (h * w) % 4 == 0, "rimg12 needs H*W divisible by 4"
+    base = np_encode_range_image(pts, proj, planes=True)
+    hw = h * w
+    steps16 = base[:hw, 0].astype(np.uint32) | (base[:hw, 1].astype(np.uint32) << 8)
+    # RIMG12_RANGE_STEP / PACKED_RANGE_STEP == 15 exactly: integer
+    # round-division
+    steps12 = (steps16 + 7) // 15
+    steps12 = np.where((steps16 > 0) & (steps12 <= 4095),
+                       np.maximum(steps12, 1), 0).astype(np.uint32)
+    quad = steps12.reshape(hw // 4, 4)
+    a, b, c, d = quad[:, 0], quad[:, 1], quad[:, 2], quad[:, 3]
+    pix_rows = np.empty((hw // 4, 6), np.uint8)
+    pix_rows[:, 0] = a & 0xFF
+    pix_rows[:, 1] = (a >> 8) | ((b & 0xF) << 4)
+    pix_rows[:, 2] = b >> 4
+    pix_rows[:, 3] = c & 0xFF
+    pix_rows[:, 4] = (c >> 8) | ((d & 0xF) << 4)
+    pix_rows[:, 5] = d >> 4
+    planes = base[hw:].reshape(-1)[:h + w]  # row means (H) + col means (W)
+    total_rows = -(-(hw // 4 + -(-(h + w) // 6)) // 256) * 256
+    tail = np.zeros((total_rows - hw // 4, 6), np.uint8)
+    tail.reshape(-1)[:h + w] = planes
+    return np.concatenate([pix_rows, tail], axis=0)
+
+
+def decode_rimg12(buf: torch.Tensor, proj: SphericalProjection):
+    """Device-side inverse of ``np_encode_rimg12``.
+
+    Args:
+        buf: (N >= H*W/4 + ceil((H+W)/6), 6) uint8, zero-padded past the
+            tail.
+    Returns:
+        ((N*4, 3) float32 points, (N*4,) bool valid): the first H*W are the
+        pixels in row-major order, the rest decode the tail and padding and
+        are invalid.
+    """
+    h, w = proj.height, proj.width
+    hw = h * w
+    b = buf.to(torch.int32)
+    quad = torch.stack([
+        b[:, 0] | ((b[:, 1] & 0xF) << 8),
+        (b[:, 1] >> 4) | (b[:, 2] << 4),
+        b[:, 3] | ((b[:, 4] & 0xF) << 8),
+        (b[:, 4] >> 4) | (b[:, 5] << 4),
+    ], dim=-1)  # (N, 4) 12-bit range steps
+    steps = quad.reshape(-1)
+    n = steps.shape[0]
+    valid = (steps > 0) & (torch.arange(n, device=buf.device) < hw)
+    tail = buf[hw // 4:hw // 4 + -(-(h + w) // 6)].reshape(-1)
+    theta_c, phi_r = _plane_angles(tail, proj)
+    return _separable_decode(steps, valid, theta_c, phi_r, h, w, n, RIMG12_RANGE_STEP)
+
+
+def decode_range_image(buf: torch.Tensor, proj: SphericalProjection,
+                       range_step: float = PACKED_RANGE_STEP):
+    """Device-side inverse of ``np_encode_range_image``.
+
+    Args:
+        buf: (N, 2|3|4) uint8, N >= its encoded rows, zero-padded: 2 columns
+            = rimg8 (range pixels + plane tail), 3 = rimg (4+4-bit offsets),
+            4 = rimg16 (8+8-bit).
+    Returns:
+        (points (N, 3) float32, valid (N,) bool); the first H*W rows are the
+        pixels in row-major order.
+    """
+    h, w = proj.height, proj.width
+    _, fov_down, fov = _fovs(proj)
+    n = buf.shape[0]
+    dev = buf.device
+    steps = buf[:, 0].to(torch.int32) | (buf[:, 1].to(torch.int32) << 8)
+    valid = steps > 0
+    if buf.shape[1] == 2:
+        # (row, col)-separable angles: H + W trig tables broadcast as outer
+        # products instead of per-pixel transcendentals
+        valid = valid & (torch.arange(n, device=dev) < h * w)
+        tail = buf[h * w:h * w + (h + w + 1) // 2, :2].reshape(-1)
+        theta_c, phi_r = _plane_angles(tail, proj)
+        return _separable_decode(steps, valid, theta_c, phi_r, h, w, n, range_step)
+    if buf.shape[1] == 4:  # 8+8-bit sub-pixel
+        qt = buf[:, 2].to(torch.float32)
+        qp = buf[:, 3].to(torch.float32)
+        bins = 256.0
+    else:  # 4+4-bit packed
+        sub = buf[:, 2].to(torch.int32)
+        qt = (sub >> 4).to(torch.float32)
+        qp = (sub & 0xF).to(torch.float32)
+        bins = 16.0
+    pw = 2.0 * math.pi / w
+    ph = fov / h
+    pix = torch.arange(n, dtype=torch.int32, device=dev) % (h * w)
+    row = torch.div(pix, w, rounding_mode="floor").to(torch.float32)
+    col = (pix % w).to(torch.float32)
+    theta = (2.0 * col / w - 1.0) * math.pi + ((qt + 0.5) / bins - 0.53) * pw
+    phi = (1.0 - row / h) * fov - abs(fov_down) + ((qp + 0.5) / bins - 0.47) * ph
+    r = steps.to(torch.float32) * range_step
+    cos_phi = torch.cos(phi)
+    pts = torch.stack([r * cos_phi * torch.cos(theta),
+                       -r * cos_phi * torch.sin(theta),
+                       r * torch.sin(phi)], dim=-1)
+    return torch.where(valid[:, None], pts, torch.zeros_like(pts)), valid

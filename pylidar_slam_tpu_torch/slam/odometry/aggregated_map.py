@@ -96,18 +96,29 @@ def agg_state_to_numpy(state: AggMapState) -> Dict[str, np.ndarray]:
 
 
 def dequant_upload(points: torch.Tensor, mask: torch.Tensor,
-                   proj: projection.SphericalProjection):
-    """Expands an upload to float32 meters and its validity mask; the third
-    return is True when the points are PIXEL-ORDERED (row-major, one per
-    pixel), so an insert can reshape instead of re-rasterizing."""
-    if points.dtype == torch.uint8 and points.shape[-1] == 2:
-        points, pvalid = projection.decode_range_image(points, proj)
+                   proj: projection.SphericalProjection,
+                   upload_quantization: float = 0.0):
+    """Expands an upload to float32 meters and its validity mask (the zero
+    padding decodes invalid); the third return is True when the points are
+    PIXEL-ORDERED (row-major, one per pixel), so an insert can reshape
+    instead of re-rasterizing.
+
+    By dtype, as in the JAX package: uint8 is a range image (6 columns =
+    rimg12, else rimg / rimg16 / rimg8), uint16 the packed points, int16
+    steps of `upload_quantization` meters, float32 meters.
+    """
+    if points.dtype == torch.uint8:
+        if points.shape[-1] == 6:  # rimg12: 4 px a row, a mask-sized output
+            points, pvalid = projection.decode_rimg12(points, proj)
+        else:
+            points, pvalid = projection.decode_range_image(points, proj)
         return points, mask & pvalid, True
-    if points.dtype == torch.float32:
-        return points, mask & (torch.amax(torch.abs(points), dim=-1) > 0), False
-    raise NotImplementedError(
-        f"upload of {points.dtype} x {points.shape[-1]}: only rimg8 and f32 "
-        f"are ported (ROADMAP.md, 'What the port leaves out')")
+    if points.dtype == torch.uint16:
+        points, pvalid = projection.decode_packed_upload(points, proj)
+        return points, mask & pvalid, False
+    if points.dtype == torch.int16:
+        points = points.to(torch.float32) * upload_quantization
+    return points, mask & (torch.amax(torch.abs(points), dim=-1) > 0), False
 
 
 # ----------------------------------------------------------------------------
@@ -293,10 +304,6 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
     """
     if alignment_mode not in ALIGNMENT_MODES:
         raise ValueError(f"Unknown alignment mode '{alignment_mode}'")
-    if upload_quantization > 0.0:
-        raise NotImplementedError(
-            "int16-quantized uploads are left out of the port (ROADMAP.md, "
-            "'What the port leaves out')")
 
     h, w = proj.height, proj.width
     max_age = int(map_cfg.local_map_size)
@@ -453,7 +460,8 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
              points: torch.Tensor, mask: torch.Tensor, init_rpose: torch.Tensor):
         """Full frame: register + thresholded insert.  Returns
         (state', delta', rpose, pose_params, (loss, iters, matches, inserted))."""
-        points, mask, pixel_ordered = dequant_upload(points, mask, proj)
+        points, mask, pixel_ordered = dequant_upload(points, mask, proj,
+                                                      upload_quantization)
         alphas = None
         if elastic or deskew:
             alphas = projection.estimate_timestamps(points, clockwise=True,
@@ -491,7 +499,8 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
         return state, delta_out, rpose, pose_params, (loss, it, matches, insert)
 
     def first_frame(state: AggMapState, points: torch.Tensor, mask: torch.Tensor):
-        points, mask, pixel_ordered = dequant_upload(points, mask, proj)
+        points, mask, pixel_ordered = dequant_upload(points, mask, proj,
+                                                      upload_quantization)
         vmap, nmap, rimg = scan_images(points, mask, pixel_ordered)
         eye = torch.eye(4, dtype=points.dtype, device=points.device)
         return insert_scan(state, vmap, nmap, rimg, eye, proj, max_age,

@@ -42,6 +42,7 @@ _POSE_FRACTIONS = {"mid_pose": 0.5, "end_pose": 1.0}
 POSE_TYPES = ("", "begin_pose") + tuple(_POSE_FRACTIONS)
 MAP_TYPES = ("projective_local_map", "aggregated_local_map",
              "kdtree_local_map", "voxel_local_map")
+UPLOAD_FORMATS = ("f32", "packed", "rimg", "rimg16", "rimg8", "rimg12")
 
 
 # ----------------------------------------------------------------------------
@@ -123,11 +124,19 @@ class ICPFrameToModelConfig(OdometryConfig):
     # ... and whenever the pose moved more than this many meters (translation
     # + rotation at a 15 m lever arm) since the last rasterization (0 = off).
     reassoc_motion_m: float = 0.0
+    # f32 uploads as int16 steps of this many meters (0 = off); points beyond
+    # +-32767 steps are dropped.  `upload_dither` adds uniform noise of one
+    # step before rounding, drawn from one generator seeded 0, in frame order.
     upload_quantization: float = 0.0
     upload_dither: bool = False
-    # "f32" (12 B/point) or "rimg8" (2 B/pixel z-buffered range image +
-    # per-row/per-col angular offset planes, exact on regular firing
-    # patterns; needs num_points_padded >= H*W + (H+W+1)//2).
+    # "f32" (12 B/point), "packed" (8 B/point: uint16 pixel id, 2 mm range
+    # steps, f16 angular offsets; needs H*W <= 65536, else f32), "rimg" (3
+    # B/pixel z-buffered range image with 4+4-bit sub-pixel offsets, the
+    # real-sensor codec), "rimg16" (4 B/pixel, 8+8-bit offsets), "rimg8" (2
+    # B/pixel + per-row/per-col angular offset planes, exact on regular
+    # firing patterns) or "rimg12" (1.5 B/pixel: 12-bit 3 cm ranges + the
+    # rimg8 planes).  rimg and rimg16 need num_points_padded >= H*W, rimg8
+    # >= H*W + (H+W+1)//2; rimg12 needs it equal to 4x its encoded rows.
     upload_format: str = "f32"
     # Frames per batched device run; B > 1 chains the constant-velocity
     # priors on the device.
@@ -292,10 +301,8 @@ class ICPFrameToModel:
                      f"Unknown local_map type '{mode}'. Known: {list(MAP_TYPES)}")
         self._mode = mode
         fmt = str(config.upload_format or "f32")
-        if fmt not in ("f32", "rimg8"):
-            raise NotImplementedError(
-                f"upload_format='{fmt}': only rimg8 and f32 are ported "
-                f"(ROADMAP.md, 'What the port leaves out')")
+        assert_debug(fmt in UPLOAD_FORMATS,
+                     f"Unknown upload_format '{fmt}'. Known: {list(UPLOAD_FORMATS)}")
         assert_debug(
             fmt == "f32" or mode != "projective_local_map",
             f"upload_format='{fmt}' has no effect with "
@@ -304,6 +311,9 @@ class ICPFrameToModel:
         assert_debug(str(config.pose_type or "") in POSE_TYPES,
                      f"Unknown pose_type '{config.pose_type}'")
         self._viz = None  # the ImageVisualizer of viz_debug, made on first use
+        # the dither's generator, made on the first dithered frame and kept
+        # across init(), as in the JAX package
+        self._dither_rng: Optional[np.random.Generator] = None
         align_cfg = config.alignment if isinstance(config.alignment, dict) else {}
         gn_cfg = dataclass_from_dict(
             GaussNewtonConfig, align_cfg.get("gauss_newton_config", {}))
@@ -504,16 +514,31 @@ class ICPFrameToModel:
     # -- uploads ------------------------------------------------------------
 
     def _compact_host_buffer(self, arr: np.ndarray) -> np.ndarray:
-        """Encodes a raw scan into the host upload buffer: the rimg8 range
-        image, or the NaN-scrubbed float32 cloud bucketed to a multiple of
-        16384 rows (zero-padded to capacity on the device)."""
+        """Encodes a raw scan into the host upload buffer, by
+        ``upload_format``: a fixed-shape range image (rimg, rimg16, rimg8,
+        rimg12), or the NaN-scrubbed cloud -- packed, int16-quantized or
+        float32 -- bucketed to a multiple of 16384 rows (zero-padded to
+        capacity on the device)."""
         cap = self.config.num_points_padded
-        if str(self.config.upload_format or "f32") == "rimg8":
+        fmt = self._upload_kind()
+        if fmt == "rimg12":
+            # the buffer is its full static shape (4 pixels a row): no
+            # device padding, so the capacity is its decoded point count
+            buf = projection.np_encode_rimg12(arr[:, :3], self.projector)
+            assert_debug(cap == 4 * buf.shape[0],
+                         f"rimg12 upload needs num_points_padded == "
+                         f"{4 * buf.shape[0]} (4 x encoded rows; got {cap})")
+            return buf
+        if fmt in ("rimg", "rimg16", "rimg8"):
+            # one point a pixel: no overflow drop; the encoders skip
+            # non-finite points themselves
             h, w = self.projector.height, self.projector.width
-            need = h * w + (h + w + 1) // 2
-            assert_debug(cap >= need, f"rimg8 upload needs num_points_padded "
+            need = h * w + ((h + w + 1) // 2 if fmt == "rimg8" else 0)
+            assert_debug(cap >= need, f"{fmt} upload needs num_points_padded "
                                       f">= {need} (got {cap})")
-            return projection.np_encode_range_image(arr[:, :3], self.projector)
+            return projection.np_encode_range_image(arr[:, :3], self.projector,
+                                                    sub16=(fmt == "rimg16"),
+                                                    planes=(fmt == "rimg8"))
         pts = arr[:, :3].astype(np.float32)
         nan_rows = np.isnan(pts).any(axis=1)
         if nan_rows.any():
@@ -522,29 +547,76 @@ class ICPFrameToModel:
             # Spatially uniform overflow drop (a stride over scan order is
             # azimuth-uniform; head truncation would keep the top rows only).
             pts = pts[:: -(-pts.shape[0] // cap)][:cap]
+        if fmt == "packed":
+            enc = projection.np_encode_packed_upload(pts, self.projector)
+            n = min(enc.shape[0], cap)
+            buf = np.zeros((self._bucket(n), 4), np.uint16)
+            buf[:n] = enc[:n]
+            return buf
         n = min(pts.shape[0], cap)
-        bucket = min(cap, max(self._UPLOAD_BUCKET,
-                              -(-n // self._UPLOAD_BUCKET) * self._UPLOAD_BUCKET))
-        buf = np.zeros((bucket, 3), np.float32)
+        if fmt == "int16":
+            q = float(self.config.upload_quantization)
+            chunk = pts[:n]
+            if self.config.upload_dither:
+                if self._dither_rng is None:
+                    self._dither_rng = np.random.default_rng(0)
+                chunk = chunk + (self._dither_rng.random(
+                    chunk.shape, dtype=np.float32) - 0.5) * q
+            steps = np.round(chunk / q)
+            # points beyond the int16 range are dropped: clamping would warp
+            # far-field geometry
+            steps[(np.abs(steps) > 32767).any(axis=1)] = 0.0
+            buf = np.zeros((self._bucket(n), 3), np.int16)
+            buf[:n] = steps
+            return buf
+        buf = np.zeros((self._bucket(n), 3), np.float32)
         buf[:n] = pts[:n]
         return buf
 
-    def encode_upload(self, arr: np.ndarray) -> np.ndarray:
+    def _upload_kind(self) -> str:
+        """The buffer `_compact_host_buffer` makes: the range-image format's
+        name, "packed" (H*W <= 65536, else the point list below), "int16"
+        (upload_quantization > 0; not on the projective map, which
+        rasterizes the f32 cloud) or "f32"."""
+        if self._mode == "projective_local_map":
+            return "f32"
+        fmt = str(self.config.upload_format or "f32")
+        if fmt.startswith("rimg") or (
+                fmt == "packed" and self.projector.height * self.projector.width <= 65536):
+            return fmt
+        return "int16" if float(self.config.upload_quantization or 0.0) > 0.0 else "f32"
+
+    def _bucket(self, n: int) -> int:
+        """Rows of a point-list upload of n points: a multiple of 16384, at
+        most the capacity."""
+        return min(self.config.num_points_padded,
+                   max(self._UPLOAD_BUCKET, -(-n // self._UPLOAD_BUCKET) * self._UPLOAD_BUCKET))
+
+    def encode_upload(self, arr: np.ndarray) -> Optional[np.ndarray]:
         """Host-side upload encoding, safe to call from prefetch workers;
-        store the result under ``data_dict["encoded_upload"]``."""
+        store the result under ``data_dict["encoded_upload"]``.  None for a
+        dithered upload: its noise comes from one generator in frame order,
+        so such a frame is encoded when it is processed."""
+        if self.config.upload_dither and self._upload_kind() == "int16":
+            return None
         return self._compact_host_buffer(np.asarray(arr))
 
     def _upload(self, stacked: np.ndarray) -> torch.Tensor:
         """(B, rows, C) host buffers -> (B, capacity, C) on the device: one
-        non-blocking copy from pinned memory, zero padding on the device."""
+        non-blocking copy from pinned memory, zero padding on the device.
+        An rimg12 buffer is its full shape already (4 points a row); the
+        zero rows of the others decode invalid."""
         host = torch.from_numpy(np.ascontiguousarray(stacked))
         if self.device.type == "cuda":
             host = host.pin_memory()
         dev = host.to(self.device, non_blocking=True)
         b, rows, cols = dev.shape
         cap = self.config.num_points_padded
-        if rows < cap:
-            dev = torch.cat([dev, dev.new_zeros((b, cap - rows, cols))], dim=1)
+        if rows < cap and not (dev.dtype == torch.uint8 and cols == 6):
+            # packed uint16 is padded through its int16 view (the same bits)
+            flat = dev.view(torch.int16) if dev.dtype == torch.uint16 else dev
+            flat = torch.cat([flat, flat.new_zeros((b, cap - rows, cols))], dim=1)
+            dev = flat.view(dev.dtype)
         return dev
 
     def _ones_mask(self, *lead) -> torch.Tensor:

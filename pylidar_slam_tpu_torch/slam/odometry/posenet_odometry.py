@@ -2,13 +2,15 @@
 checkpoint (torch port of ``pylidar_slam_tpu.slam.odometry.posenet_odometry``).
 
 Reads ``{train_dir}/config.yaml`` and ``{train_dir}/checkpoint.ckp`` (the
-port's trainer writes both), rebuilds the network and regresses the relative
+port's trainer writes both, and so does the JAX package's: its pickled
+checkpoint is read without JAX), rebuilds the network and regresses the relative
 pose from the previous and current frames rasterized on the device.  Each
 frame's pose stays on the device; ``get_relative_poses`` fetches the log
 once.
 """
 from __future__ import annotations
 
+import zipfile
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from pylidar_slam_tpu_torch.config import MISSING, dataclass_from_dict, load_yaml_file
+from pylidar_slam_tpu_torch.models.from_jax import load_jax_variables, read_jax_checkpoint
 from pylidar_slam_tpu_torch.ops import projection
 from pylidar_slam_tpu_torch.slam.initialization import frame_points
 from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import OdometryConfig, _pose_matrix_f64
@@ -63,8 +66,12 @@ class _PoseNetInference:
         assert_debug(projector is not None, "PoseNet inference needs a projector")
         self.proj = projector
         self.cap = int(num_points_padded)
-        state = torch.load(ckpt_path, map_location=device, weights_only=True)
-        self.prediction.module.load_state_dict(state["model"])
+        if zipfile.is_zipfile(ckpt_path):  # the port's torch.save
+            state = torch.load(ckpt_path, map_location=device, weights_only=True)
+            self.prediction.module.load_state_dict(state["model"])
+        else:  # the JAX trainer's pickle
+            state = read_jax_checkpoint(ckpt_path)
+            load_jax_variables(self.prediction.module, state["params"], state["batch_stats"])
         self.prediction.module.eval()
 
     def upload(self, points: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -181,10 +181,6 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
     (and the same stop condition).  The match count is all-reduced once per
     registration.
     """
-    if upload_quantization > 0.0:
-        raise NotImplementedError(
-            "int16-quantized uploads are left out of the port (ROADMAP.md, "
-            "'What the port leaves out')")
     h, w = proj.height, proj.width
     k = int(map_cfg.local_map_size)
     s = int(map_cfg.points_per_frame)
@@ -372,7 +368,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
              points: torch.Tensor, mask: torch.Tensor, init_rpose: torch.Tensor):
         """Full frame: register + thresholded insert + re-anchor.  Returns
         (state', delta', rpose, pose_params, (loss, iters, matches, inserted))."""
-        points, mask, _ = dequant_upload(points, mask, proj)
+        points, mask, _ = dequant_upload(points, mask, proj, upload_quantization)
         targets, _, t_valid = _grid_sample_fixed(
             points, mask, float(map_cfg.target_voxel_size), m_targets)
         if group is not None:
@@ -405,7 +401,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
 
     def first_frame(state: SurfelMapState, points: torch.Tensor,
                     mask: torch.Tensor) -> SurfelMapState:
-        points, mask, _ = dequant_upload(points, mask, proj)
+        points, mask, _ = dequant_upload(points, mask, proj, upload_quantization)
         return insert(state, points, mask,
                       torch.eye(4, dtype=torch.float32, device=points.device))
 

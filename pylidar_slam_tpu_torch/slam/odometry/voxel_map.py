@@ -101,10 +101,6 @@ def make_voxel_icp_frame_step(proj: projection.SphericalProjection,
                               reassoc_motion_m: float = 0.0):
     """Builds (step, first_frame, batch_step) for the voxel-table odometry,
     with the surfel map's contract (``ICPFrameToModel`` drives both)."""
-    if upload_quantization > 0.0:
-        raise NotImplementedError(
-            "int16-quantized uploads are left out of the port (ROADMAP.md, "
-            "'What the port leaves out')")
     k_live = int(map_cfg.local_map_size)
     vox = float(map_cfg.map_voxel)
     max_nd = float(map_cfg.max_neighbor_dist)
@@ -198,7 +194,7 @@ def make_voxel_icp_frame_step(proj: projection.SphericalProjection,
              points: torch.Tensor, mask: torch.Tensor, init_rpose: torch.Tensor):
         """Full frame: register + thresholded insert + re-anchor.  Returns
         (state', delta', rpose, pose_params, (loss, iters, matches, inserted))."""
-        points, mask, _ = dequant_upload(points, mask, proj)
+        points, mask, _ = dequant_upload(points, mask, proj, upload_quantization)
         targets, _, t_valid = scatter_select(points, mask, vox, m_targets,
                                              salt=state.frame)
         q_init = state.anchor_t_last @ init_rpose
@@ -232,7 +228,7 @@ def make_voxel_icp_frame_step(proj: projection.SphericalProjection,
 
     def first_frame(state: VoxelMapState, points: torch.Tensor,
                     mask: torch.Tensor) -> VoxelMapState:
-        points, mask, _ = dequant_upload(points, mask, proj)
+        points, mask, _ = dequant_upload(points, mask, proj, upload_quantization)
         sel, _, sel_valid = scatter_select(points, mask, vox, m_targets,
                                            salt=state.frame)
         return state._replace(table=insert(state, sel, sel_valid),

@@ -13,9 +13,11 @@ every ``average_meter_frequency`` iterations.  Windows are loaded, padded
 and pinned by background threads, in the order a seeded numpy generator
 gives (the JAX package's order).
 
-The checkpoint (``{train_dir}/checkpoint.ckp``) is the port's own, a
-``torch.save`` of the state dicts and counters; JAX weights enter through
-``models.from_jax.load_jax_variables``.
+The checkpoint (``{train_dir}/checkpoint.ckp``) the port writes is its
+own, a ``torch.save`` of the state dicts and counters.  It also resumes
+from the JAX trainer's pickled checkpoint, read without JAX
+(``models.from_jax``): the weights, ``exp_s``, optax's moments carried
+into the optimizer, the injected learning rate and the counters.
 
 ``data_parallel`` and ``tensor_parallel`` > 1 run one step on the global
 batch across the ranks of a ``torch.distributed`` process group (under
@@ -32,6 +34,7 @@ import logging
 import queue
 import subprocess
 import threading
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -42,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from pylidar_slam_tpu_torch.config import dump_yaml
+from pylidar_slam_tpu_torch.models import from_jax
 from pylidar_slam_tpu_torch.models.resnet import BatchNorm2d
 from pylidar_slam_tpu_torch.ops import projection
 from pylidar_slam_tpu_torch.parallel import tp as tpm
@@ -329,6 +333,10 @@ class PoseNetTrainer:
         }, self.train_dir / "checkpoint.ckp")
 
     def load_checkpoint(self, path: str):
+        """The port's checkpoint (a ``torch.save`` zip) or the JAX
+        trainer's (a pickle), told apart by their bytes."""
+        if not zipfile.is_zipfile(path):
+            return self._load_jax_checkpoint(path)
         state = torch.load(path, map_location=self.device, weights_only=True)
         self.module.load_state_dict(state["model"])
         if state.get("exp_s") is not None:
@@ -338,6 +346,57 @@ class PoseNetTrainer:
         self.num_train_epochs = state["num_train_epochs"]
         self.train_iter = state.get("train_iter", 0)
         self.eval_iter = state.get("eval_iter", 0)
+
+    def _load_jax_checkpoint(self, path: str):
+        """The JAX trainer's checkpoint: weights, exp_s, counters, and
+        optax's state (JAX trainer.py's ``inject_hyperparams`` over the
+        optimizer) as this optimizer's: adam / adamw ``mu``, ``nu`` and
+        ``count``, sgd's momentum ``trace``, rmsprop's ``nu`` and momentum
+        ``trace`` (optax's holds the negated, lr-scaled steps), and the
+        injected learning rate."""
+        state = from_jax.read_jax_checkpoint(path)
+        params, stats = state["params"], state["batch_stats"]
+        from_jax.load_jax_variables(self.module, params, stats)
+        if state["exp_s"] is not None and self.exp_s is not None:
+            with torch.no_grad():
+                self.exp_s.copy_(torch.as_tensor(np.asarray(state["exp_s"], np.float32)))
+        self.num_train_epochs = state["num_train_epochs"]
+        self.train_iter = state["train_iter"]
+        self.eval_iter = state["eval_iter"]
+        opt_state = state["opt_state"]
+        if opt_state is None:
+            return
+        for group in self.optimizer.param_groups:
+            group["lr"] = float(np.asarray(opt_state.hyperparams["learning_rate"]))
+        inner = {type(s).__name__: s for s in opt_state.inner_state}
+
+        def moments(tree) -> list:
+            """An optax moment tree ({"params", "exp_s"}) in _named_trainable order."""
+            by_name = from_jax.param_tensors(self.module, tree["params"], stats)
+            if self.exp_s is not None:
+                by_name["exp_s"] = torch.as_tensor(np.asarray(tree["exp_s"], np.float32))
+            return [by_name[name].to(self.device) for name, _ in self._named_trainable()]
+
+        kind = self.config.optimizer_type
+        want = {"adam": "ScaleByAdamState", "adamw": "ScaleByAdamState",
+                "sgd": "TraceState", "rmsprop": "ScaleByRmsState"}[kind]
+        assert_debug(want in inner, f"the JAX checkpoint's optimizer state "
+                                    f"({list(inner)}) is not {kind}'s")
+        params = self._trainable()
+        if kind in ("adam", "adamw"):
+            adam = inner["ScaleByAdamState"]
+            step = float(np.asarray(adam.count))
+            for p, mu, nu in zip(params, moments(adam.mu), moments(adam.nu)):
+                self.optimizer.state[p] = {"step": torch.tensor(step), "exp_avg": mu,
+                                           "exp_avg_sq": nu}
+        elif kind == "sgd":
+            for p, trace in zip(params, moments(inner["TraceState"].trace)):
+                self.optimizer.state[p] = {"momentum_buffer": trace}
+        else:
+            nus = moments(inner["ScaleByRmsState"].nu)
+            traces = moments(inner["TraceState"].trace)
+            for p, nu, trace in zip(params, nus, traces):
+                self.optimizer.state[p] = {"nu": nu, "trace": -trace}
 
     # ------------------------------------------------------------------
     # The train step

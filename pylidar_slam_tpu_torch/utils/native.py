@@ -77,23 +77,33 @@ load_kitti_scan.reads = 0
 _READS_LOCK = threading.Lock()
 
 
-def encode_range_image_planes(points: np.ndarray, h: int, w: int,
-                              fov_up_rad: float, fov_down_rad: float,
-                              range_step: float) -> Optional[np.ndarray]:
-    """O(n) single-pass z-buffered rimg8 encode: (h*w + (h+w+1)//2, 2) uint8
-    range-only pixels followed by the per-row / per-column mean angular
-    offset planes.  None if the native library is unavailable."""
+def encode_range_image(points: np.ndarray, h: int, w: int,
+                       fov_up_rad: float, fov_down_rad: float,
+                       range_step: float, sub16: bool = False,
+                       planes: bool = False) -> Optional[np.ndarray]:
+    """O(n) single-pass z-buffered range-image encode.
+
+    Default (mode 0, rimg): (h*w, 3) rows [r_lo, r_hi, sub] with 4+4-bit
+    sub-pixel offsets; `sub16` (mode 1, rimg16): (h*w, 4) with 8+8-bit
+    offsets; `planes` (mode 2, rimg8): (h*w + (h+w+1)//2, 2) range-only
+    pixels followed by the per-row / per-column mean angular offset planes.
+    None if the native library is unavailable."""
     lib = get_lib()
     if lib is None:
         return None
     points = np.ascontiguousarray(points[:, :3], np.float32)
-    out = np.zeros((h * w + (h + w + 1) // 2, 2), np.uint8)
+    if planes:
+        out = np.zeros((h * w + (h + w + 1) // 2, 2), np.uint8)
+        mode = 2
+    else:
+        out = np.zeros((h * w, 4 if sub16 else 3), np.uint8)
+        mode = 1 if sub16 else 0
     lib.encode_range_image(points.ctypes.data_as(ctypes.c_void_p),
                            points.shape[0], h, w,
                            ctypes.c_float(fov_up_rad),
                            ctypes.c_float(fov_down_rad),
                            ctypes.c_float(range_step),
-                           2,  # mode 2: range pixels + angular planes
+                           mode,
                            out.ctypes.data_as(ctypes.c_void_p))
     return out
 

@@ -81,27 +81,6 @@ def test_bench_config_is_the_root_benchs(clean_env, bench_map, env):
     assert ours.device == "cuda"
 
 
-@pytest.mark.parametrize("fmt", ["rimg", "rimg12", "rimg16", "packed"])
-def test_unported_format_raises(clean_env, fmt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench.build_icp_config("aggregated", fmt)
-
-
-def test_quantized_upload_raises(clean_env):
-    clean_env.setenv("BENCH_QUANT", "0.01")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench.build_icp_config("aggregated", "rimg8")
-
-
-def test_bench_default_format_of_an_irregular_loader_raises(clean_env):
-    """A loader that is not grid-regular defaults to rimg, which the port
-    leaves out: the bench raises rather than switching formats."""
-    loader = SyntheticDatasetLoader(SyntheticConfig(num_frames=2, beam_jitter_deg=0.05, **TINY))
-    assert not loader.grid_regular
-    with pytest.raises(NotImplementedError, match="rimg"):
-        bench.run(bench.Settings(device="cpu"), [], loader, "synthetic")
-
-
 @pytest.mark.parametrize("entry", [bench, bench_surfel, bench_pipeline])
 def test_bench_without_a_card_raises(clean_env, entry):
     """The card unless BENCH_DEVICE=cpu: no fallback to the CPU."""

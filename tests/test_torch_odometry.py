@@ -61,10 +61,9 @@ def frames():
 
 
 def _configs(**over):
-    t = dataclasses.replace(tacc.champion_configs()["aggregated"],
-                            num_points_padded=CAP, device="cpu", **over)
-    j = dataclasses.replace(jacc.champion_configs()["aggregated"],
-                            num_points_padded=CAP, **over)
+    over = dict(dict(num_points_padded=CAP), **over)
+    t = dataclasses.replace(tacc.champion_configs()["aggregated"], device="cpu", **over)
+    j = dataclasses.replace(jacc.champion_configs()["aggregated"], **over)
     return t, j
 
 
