@@ -92,8 +92,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch 1 and batch 4: at least one loop constraint with the backend
    optimizing before the last frame, the same loop pairs at both batch
    sizes, each constraint within 0.15 m and 0.25 deg of the ground truth,
-   ATE < 0.05 m, B2 launched on the refine (total and active trips); one
-   ``_match_candidates`` dispatch under
+   ATE < 0.05 m, B2 launched on the refine (total and active trips; the
+   counts are set to 0 after ``init()``, whose loop-closure warm-up runs
+   the match on zeros), scans/s, the warm-up's seconds and the loop
+   closure's seconds on the pipeline thread (in all and the longest
+   frame); one ``_match_candidates`` dispatch under
    ``torch.cuda.set_sync_debug_mode("error")`` and under ``torch.profiler``;
    the same runs without loop closure, for scans/s; B2 against its plain
    version on a refine's 4096 x 4096 inputs, masks on both sides;
@@ -188,7 +191,8 @@ pylidar_slam_tpu_torch.eval.record_e2e``: the same code stamp
 recorded value, the largest translation gap printed.
 
 ``--only NAME`` builds and runs one phase alone (a probe, no result line):
-``posenet``, ``datasets``, ``parallel``, ``viz``, ``codecs``, ``bench``, which runs
+``posenet``, ``datasets``, ``parallel``, ``viz``, ``codecs``, ``slam`` (with B2
+against its plain version on the refine's inputs), ``bench``, which runs
 the three benches at their own defaults (``bench`` also with the kdtree and
 voxel maps), or ``graft``, which runs the dry run at 8 ranks (the driver's
 MULTICHIP size).
@@ -306,6 +310,11 @@ LOOP_OVERRIDES = ["slam/loop_closure=elevation_image", "slam.loop_closure.local_
 # About twice the JAX package's worst loop constraint on this run on the
 # CPU (0.080 m, 0.123 deg).
 LOOP_TRANS_M, LOOP_ROT_DEG = 0.15, 0.25
+# scans/s of the slam phase's runs with loop closure when init() did not
+# warm the match path (its first submap event paid the first cuFFT plans
+# and solver handles; NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6; batch 1
+# includes set-up), printed beside this call's
+EARLIER_SCANS_PER_S = {1: 7.18, 4: 10.42}
 SLAM_ATE_M = 0.05
 # The verify recipe's run through the CLI; tr_err is a ratio (1%).
 CLI_OVERRIDES = ["dataset=synthetic", "dataset.num_frames=130", "dataset.speed=1.3"]
@@ -984,12 +993,16 @@ def slam_config(batch: int, loop_closure: bool) -> dict:
 
 
 def run_slam(batch, loop_closure, loader, frames, dev) -> tuple:
-    """The port's SLAM over the frames; returns (slam, wall seconds, the
-    loop constraints registered before the last frame)."""
+    """The port's SLAM over the frames, the kernels' counts set to 0 after
+    ``init()`` (the loop closure's warm-up launches B2); returns (slam, wall
+    seconds of the frames, the loop constraints registered before the last
+    frame)."""
     slam = SLAM(slam_config(batch, loop_closure)["slam"], projector=loader.projector(),
                 device=dev)
     slam.init()
     torch.cuda.synchronize()
+    b1.assoc_gn.launches = 0
+    b2.nn_argmin.launches = 0
     t0 = time.perf_counter()
     before_last = []
     for i, f in enumerate(frames):
@@ -1066,8 +1079,6 @@ def slam_phase(dev, card) -> tuple:
     gt_rel = loader.get_ground_truth("synth_00")[:SLAM_FRAMES]
     out, slams = {}, {}
     for batch in (1, 4):
-        b1.assoc_gn.launches = 0
-        b2.nn_argmin.launches = 0
         slam, elapsed, before_last = run_slam(batch, True, loader, frames, dev)
         launches = b2.nn_argmin.launches
         lc = slam.loop_closure
@@ -1081,12 +1092,17 @@ def slam_phase(dev, card) -> tuple:
                "ate_m": ate, "ate_std_m": ate_std, "odometry_ate_m": odo_ate,
                "b2_launches": launches, "b2_active_launches": trips,
                "b1_launches": b1.assoc_gn.launches, "submap_events": len(lc.maps_frame_ids),
-               "matches": lc.match_stats}
+               "matches": lc.match_stats, "warmup_s": lc.warmup_seconds,
+               "loop_closure_s": sum(slam.elapsed_loop_closure),
+               "loop_closure_max_s": max(slam.elapsed_loop_closure)}
         log(f"[slam] {card}: batch {batch}: {SLAM_FRAMES} frames in {elapsed:.2f} s "
-            f"({SLAM_FRAMES / elapsed:.2f} scans/s, first run includes set-up); loops "
-            f"{[(i, j, round(t, 4), round(r, 4)) for i, j, t, r in loops]}; ATE {ate:.5f} m "
-            f"(odometry alone {odo_ate:.5f} m); B2 launches {launches}, {trips} active; "
-            f"B1 launches {b1.assoc_gn.launches}")
+            f"({SLAM_FRAMES / elapsed:.2f} scans/s, init() and its warm-up not counted; "
+            f"{EARLIER_SCANS_PER_S[batch]} with no warm-up); warm-up at init "
+            f"{lc.warmup_seconds:.3f} s; the loop closure's seconds on the pipeline thread "
+            f"{run['loop_closure_s']:.3f}, the longest frame's {run['loop_closure_max_s']:.3f}; "
+            f"loops {[(i, j, round(t, 4), round(r, 4)) for i, j, t, r in loops]}; ATE "
+            f"{ate:.5f} m (odometry alone {odo_ate:.5f} m); B2 launches {launches}, {trips} "
+            f"active; B1 launches {b1.assoc_gn.launches}")
         if not loops:
             raise AssertionError(f"slam batch {batch}: no loop constraint")
         if not any(abs(i - j) > 2 for i, j, *_ in before_last):
@@ -1114,6 +1130,14 @@ def slam_phase(dev, card) -> tuple:
         log(f"[slam] {card}: batch {batch} without loop closure: {SLAM_FRAMES / elapsed:.2f} "
             f"scans/s, ATE {ate:.5f} m")
     return out, lc_inputs
+
+
+def only_slam(dev, card) -> dict:
+    """The slam phase, then B2 against its plain version on the refine's
+    inputs."""
+    out, lc_inputs = slam_phase(dev, card)
+    out["compare_b2"] = _b2_case("loop-closure refine", *lc_b2_args(lc_inputs))
+    return out
 
 
 def lc_b2_args(lc_inputs) -> tuple:
@@ -2415,7 +2439,8 @@ def bench_phase(loader, frames, dev, card, full=False) -> dict:
     _bench_line("bench_pipeline", result, card)
     _expect("bench_pipeline", "assoc_gn", l1,
             result["repeats"] * (len(seq) - 1) * iters)
-    log(f"[bench] bench_pipeline: nn_argmin launches {l2} (the loop closure's refine)")
+    log(f"[bench] bench_pipeline: nn_argmin launches {l2} (the loop closure's warm-up at "
+        "each init and its refine)")
     out["bench_pipeline"] = {"line": result, "assoc_gn_launches": l1, "nn_argmin_launches": l2}
     return out
 
@@ -2610,7 +2635,7 @@ def main() -> int:
                              "unpacked by git archive) whose kernels are timed against "
                              "this one's; repeatable")
     parser.add_argument("--only", choices=["posenet", "datasets", "parallel", "viz", "bench",
-                                           "graft", "codecs"],
+                                           "graft", "codecs", "slam"],
                         help="build, then run this phase alone (a probe: no result line)")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
@@ -2632,7 +2657,7 @@ def main() -> int:
         result = phase(args.only, {"posenet": posenet_phase, "datasets": datasets_phase,
                                    "parallel": only_parallel, "viz": viz_phase,
                                    "bench": only_bench, "graft": only_graft,
-                                   "codecs": codecs_phase}[args.only],
+                                   "codecs": codecs_phase, "slam": only_slam}[args.only],
                        dev, card)
         (ROOT / "build" / f"chip_smoke_{args.only}.json").write_text(json.dumps(
             {"card": card, args.only: result, "seconds": seconds}, indent=1, default=str))

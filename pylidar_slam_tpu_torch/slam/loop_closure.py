@@ -15,10 +15,25 @@ emits ``se3_loop_closure_constraint_<i>_<j>`` keys into the data_dict.
 
 ``update_positions`` rewrites the stored submap poses after a backend
 optimization.  The submap event runs inline on the pipeline thread.
+
+``init()`` warms the match path: one match on zeros and one image build at
+the event's shapes, so B2's first-use build, the first cuFFT plans and this
+thread's solver handles are paid there, not at the first loop candidate
+mid-run.  Where the port parts from the JAX package, which runs its submap
+events on a one-thread ``lc-event`` worker and its warm-up on a thread of
+its own:
+
+- the event and the warm-up run on the calling thread.  On the card both
+  threads would dispatch from Python, contending for the GIL at every op,
+  and a worker made SLAM with loop closure slower than the inline event
+  (ROADMAP.md, "What the port leaves out");
+- an exception in the warm-up is raised by ``init()``; the JAX package
+  drops it.
 """
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
 from typing import List
 
@@ -113,7 +128,28 @@ class ElevationImageLoopClosure(LoopClosure):
             config = dataclass_from_dict(EILoopClosureConfig, config)
         super().__init__(config)
         self.device = torch.device(device)
+        self.warmup_seconds = 0.0  # host seconds of the last warm-up
         self.clean()
+
+    def init(self):
+        super().init()
+        self._prewarm()
+
+    def _prewarm(self):
+        """The match path on zeros and the image build on one point, at the
+        event's shapes; the results are dropped and no state changes."""
+        t0 = time.perf_counter()
+        cfg = self.config
+        c, s, n = int(cfg.max_num_candidates), int(cfg.im_size), int(cfg.icp_num_points)
+        dev = self.device
+        self._match_batch(torch.zeros((c, s, s), device=dev),
+                          torch.zeros((c, n, 3), device=dev),
+                          torch.ones((c, n), dtype=torch.bool, device=dev),
+                          torch.zeros((s, s), device=dev),
+                          torch.zeros((n, 3), device=dev),
+                          torch.ones((n,), dtype=torch.bool, device=dev))
+        self._build_image(np.zeros((1, 3), np.float32))
+        self.warmup_seconds = time.perf_counter() - t0
 
     def clean(self):
         self.current_frame_id = 0
