@@ -31,7 +31,7 @@ STAMP_MODULES = (
     "ops/*.py", "ops/kernels/*.py", "slam/__init__.py",
     "slam/initialization.py", "slam/odometry/*.py", "training/__init__.py",
     "training/prediction_modules.py", "utils/__init__.py", "utils/build.py",
-    "utils/checks.py", "utils/native.py", "utils/transfer.py")
+    "utils/checks.py", "utils/native.py", "utils/timer.py", "utils/transfer.py")
 STAMP_NATIVE = "native/pointcloud_native.cpp"
 
 SEQ_KW = dict(lidar_height=64, lidar_width=1024, num_frames=140,

@@ -21,6 +21,7 @@ from pylidar_slam_tpu_torch.config import MISSING, Registry, dataclass_from_dict
 from pylidar_slam_tpu_torch.eval.eval_odometry import compute_relative_poses
 from pylidar_slam_tpu_torch.ops.pose_graph import optimize_pose_graph_host
 from pylidar_slam_tpu_torch.utils import assert_debug
+from pylidar_slam_tpu_torch.utils.timer import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -178,63 +179,66 @@ class GraphSLAM(Backend):
             self.odometry_poses.append(np.eye(4))
 
     def next_frame(self, data_dict: dict):
-        constraints = self.search_constraints(data_dict)
-        do_update = False
+        with span("backend.next_frame"):
+            constraints = self.search_constraints(data_dict)
+            do_update = False
 
-        for i, mat, information in constraints["se3_odometry"]:
-            mat = mat.astype(np.float64)
-            if i + 1 >= len(self._poses):
-                assert_debug(i < len(self._poses),
-                             f"Odometry constraint {i} skips a vertex")
-                self._poses.append(self._poses[i] @ mat)
-                self.odometry_poses.append(self.odometry_poses[-1] @ mat)
-            info = (np.asarray(information) if information is not None
-                    else _odometry_information())
-            self._edges.append((i, i + 1, mat, info))
+            for i, mat, information in constraints["se3_odometry"]:
+                mat = mat.astype(np.float64)
+                if i + 1 >= len(self._poses):
+                    assert_debug(i < len(self._poses),
+                                 f"Odometry constraint {i} skips a vertex")
+                    self._poses.append(self._poses[i] @ mat)
+                    self.odometry_poses.append(self.odometry_poses[-1] @ mat)
+                info = (np.asarray(information) if information is not None
+                        else _odometry_information())
+                self._edges.append((i, i + 1, mat, info))
 
-        for i, mat, information in constraints["se3_absolute"]:
-            info = (np.asarray(information) if information is not None
-                    else _gps_information())
-            self._priors.append((i, mat.astype(np.float64), info))
+            for i, mat, information in constraints["se3_absolute"]:
+                info = (np.asarray(information) if information is not None
+                        else _gps_information())
+                self._priors.append((i, mat.astype(np.float64), info))
 
-        for i, j, mat, information in constraints["se3_loop_closure"]:
-            assert_debug(i < len(self._poses) and j < len(self._poses),
-                         f"Loop constraint ({i}, {j}) references unknown poses")
-            info = (np.asarray(information) if information is not None
-                    else _loop_closure_information())
-            self._edges.append((i, j, mat.astype(np.float64), info))
-            if abs(i - j) > 2:
-                do_update = True
+            for i, j, mat, information in constraints["se3_loop_closure"]:
+                assert_debug(i < len(self._poses) and j < len(self._poses),
+                             f"Loop constraint ({i}, {j}) references unknown poses")
+                info = (np.asarray(information) if information is not None
+                        else _loop_closure_information())
+                self._edges.append((i, j, mat.astype(np.float64), info))
+                if abs(i - j) > 2:
+                    do_update = True
 
-        if do_update:
-            logger.info("Optimizing pose graph (%d poses, %d edges)",
-                        len(self._poses), len(self._edges))
-            self.optimize(self.config.max_optim_iterations)
-            self.need_to_update_pose = True
+            if do_update:
+                logger.info("Optimizing pose graph (%d poses, %d edges)",
+                            len(self._poses), len(self._edges))
+                self.optimize(self.config.max_optim_iterations)
+                self.need_to_update_pose = True
 
     def optimize(self, max_num_epochs: int = 20):
-        if not self._edges:
-            return
-        if not self.config.online_optimization:
-            self._poses = [p.copy() for p in self.odometry_poses]
+        with span("backend.optimize"):
+            if not self._edges:
+                return
+            if not self.config.online_optimization:
+                self._poses = [p.copy() for p in self.odometry_poses]
 
-        # float64 host solve (scipy sparse LU): the graph is tiny next to
-        # the scan pipeline; ``optimize_pose_graph`` is the device solver
-        poses = np.stack(self._poses)
-        optimized = optimize_pose_graph_host(
-            poses,
-            edge_i=[e[0] for e in self._edges],
-            edge_j=[e[1] for e in self._edges],
-            measurements=np.stack([e[2] for e in self._edges]),
-            information=np.stack([e[3] for e in self._edges]),
-            prior_idx=[p[0] for p in self._priors] if self._priors else None,
-            prior_measurements=(np.stack([p[1] for p in self._priors])
-                                if self._priors else None),
-            prior_information=(np.stack([p[2] for p in self._priors])
-                               if self._priors else None),
-            num_iters=min(max_num_epochs, 30),
-            fix_first=self.config.fix_first_frame)
-        self._poses = [optimized[k] for k in range(optimized.shape[0])]
+            # float64 host solve (scipy sparse LU): the graph is tiny next to
+            # the scan pipeline; ``optimize_pose_graph`` is the device solver
+            poses = np.stack(self._poses)
+            optimized = optimize_pose_graph_host(
+                poses,
+                edge_i=[e[0] for e in self._edges],
+                edge_j=[e[1] for e in self._edges],
+                measurements=np.stack([e[2] for e in self._edges]),
+                information=np.stack([e[3] for e in self._edges]),
+                prior_idx=[p[0] for p in self._priors] if self._priors else None,
+                prior_measurements=(np.stack([p[1] for p in self._priors])
+                                    if self._priors else None),
+                prior_information=(np.stack([p[2] for p in self._priors])
+                                   if self._priors else None),
+                num_iters=min(max_num_epochs, 30),
+                fix_first=self.config.fix_first_frame)
+            self._poses = [optimized[k] for k in range(optimized.shape[0])]
+            count("backend.optimizations")
 
     def world_poses(self) -> np.ndarray:
         return self.absolute_poses()

@@ -33,7 +33,6 @@ its own:
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 from typing import List
 
@@ -45,6 +44,7 @@ from pylidar_slam_tpu_torch.ops import bev, icp3d
 from pylidar_slam_tpu_torch.slam.backend import Backend
 from pylidar_slam_tpu_torch.slam.preprocessing import np_grid_sample
 from pylidar_slam_tpu_torch.utils import assert_debug, check_tensor, native
+from pylidar_slam_tpu_torch.utils.timer import count, span
 from pylidar_slam_tpu_torch.utils.transfer import copy_to_host_async
 
 logger = logging.getLogger(__name__)
@@ -138,18 +138,18 @@ class ElevationImageLoopClosure(LoopClosure):
     def _prewarm(self):
         """The match path on zeros and the image build on one point, at the
         event's shapes; the results are dropped and no state changes."""
-        t0 = time.perf_counter()
         cfg = self.config
         c, s, n = int(cfg.max_num_candidates), int(cfg.im_size), int(cfg.icp_num_points)
         dev = self.device
-        self._match_batch(torch.zeros((c, s, s), device=dev),
-                          torch.zeros((c, n, 3), device=dev),
-                          torch.ones((c, n), dtype=torch.bool, device=dev),
-                          torch.zeros((s, s), device=dev),
-                          torch.zeros((n, 3), device=dev),
-                          torch.ones((n,), dtype=torch.bool, device=dev))
-        self._build_image(np.zeros((1, 3), np.float32))
-        self.warmup_seconds = time.perf_counter() - t0
+        with span("lc.warmup") as warmup:
+            self._match_batch(torch.zeros((c, s, s), device=dev),
+                              torch.zeros((c, n, 3), device=dev),
+                              torch.ones((c, n), dtype=torch.bool, device=dev),
+                              torch.zeros((s, s), device=dev),
+                              torch.zeros((n, 3), device=dev),
+                              torch.ones((n,), dtype=torch.bool, device=dev))
+            self._build_image(np.zeros((1, 3), np.float32))
+        self.warmup_seconds = warmup.seconds
 
     def clean(self):
         self.current_frame_id = 0
@@ -297,24 +297,26 @@ class ElevationImageLoopClosure(LoopClosure):
         (C, 4, 4), refine trips (C,))."""
         cfg = self.config
         c = cand_imgs.shape[0]
-        if str(cfg.match_method) == "fm":
-            pf = max(1, int(cfg.match_pool_factor or 1))
-            px_size = cfg.pixel_size * pf
-            img_m, cands_m = image, cand_imgs
-            if pf > 1 and image.shape[0] % pf == 0:
-                img_m, cands_m = bev._pool(image, pf), bev._pool(cand_imgs, pf)
-            res = bev.register_bev_fm(cands_m, img_m)
-        else:
-            px_size = cfg.pixel_size
-            res = bev.register_bev(cand_imgs, image, num_yaw_steps=cfg.num_yaw_steps,
-                                   coarse_factor=2)
-        transforms = bev.bev_transform_to_se3(res, px_size)
+        with span("lc.match.fm"):
+            if str(cfg.match_method) == "fm":
+                pf = max(1, int(cfg.match_pool_factor or 1))
+                px_size = cfg.pixel_size * pf
+                img_m, cands_m = image, cand_imgs
+                if pf > 1 and image.shape[0] % pf == 0:
+                    img_m, cands_m = bev._pool(image, pf), bev._pool(cand_imgs, pf)
+                res = bev.register_bev_fm(cands_m, img_m)
+            else:
+                px_size = cfg.pixel_size
+                res = bev.register_bev(cand_imgs, image, num_yaw_steps=cfg.num_yaw_steps,
+                                       coarse_factor=2)
+            transforms = bev.bev_transform_to_se3(res, px_size)
         trips = torch.zeros((c,), dtype=torch.int32, device=image.device)
         if cfg.with_icp_refinement:
-            out = icp3d.icp_align(sm_cloud, cand_clouds, init_transform=transforms,
-                                  source_mask=sm_mask, target_mask=cand_masks,
-                                  max_corr_dist=float(cfg.icp_distance_threshold),
-                                  active=res.score >= float(cfg.min_score))
+            with span("lc.match.refine"):
+                out = icp3d.icp_align(sm_cloud, cand_clouds, init_transform=transforms,
+                                      source_mask=sm_mask, target_mask=cand_masks,
+                                      max_corr_dist=float(cfg.icp_distance_threshold),
+                                      active=res.score >= float(cfg.min_score))
             transforms, trips = out.transform, out.num_iters
         return res.score, transforms, trips
 
@@ -339,15 +341,18 @@ class ElevationImageLoopClosure(LoopClosure):
     def _event(self, aggregated: np.ndarray, cand_ids, mid_frame_id: int):
         """The submap event: subsample, BEV image, store, match."""
         cfg = self.config
-        sm_np, sm_mask_np = self._pad_fixed(self._subsample(aggregated, cfg.icp_num_points),
-                                            cfg.icp_num_points)
-        submap_cloud = (self._upload(sm_np), self._upload(sm_mask_np))
-        image = self._build_image(aggregated)
+        with span("lc.event.subsample"):
+            sm_np, sm_mask_np = self._pad_fixed(
+                self._subsample(aggregated, cfg.icp_num_points), cfg.icp_num_points)
+            submap_cloud = (self._upload(sm_np), self._upload(sm_mask_np))
+        with span("lc.event.image"):
+            image = self._build_image(aggregated)
         # stored before matching: the candidates are earlier submaps
         self.saved_images.append(image)
         self.saved_clouds.append(submap_cloud)
         if len(cand_ids) > 0:
-            self._match_candidates(cand_ids, image, submap_cloud, mid_frame_id)
+            with span("lc.event.match"):
+                self._match_candidates(cand_ids, image, submap_cloud, mid_frame_id)
 
     def drain_pending(self, data_dict: dict, wait: bool = True):
         """Turns finished candidate matches into loop-closure constraint keys
@@ -361,15 +366,17 @@ class ElevationImageLoopClosure(LoopClosure):
                 if not wait and not event.query():
                     self._pending_matches.append(item)
                     continue
-                event.synchronize()
+                with span("lc.match_wait"):
+                    event.synchronize()
             scores = scores.numpy()
             transforms = transforms.numpy().astype(np.float64)
             trips = trips.numpy()
             n = len(ids)
-            self.match_stats.append({
+            stats = {
                 "frame_id": frame_id, "ids": list(ids), "candidates": n,
                 "refined": int(np.sum(scores[:n] >= cfg.min_score)),
-                "refine_trips": int(trips.sum()), "refine_trips_real": int(trips[:n].sum())})
+                "refine_trips": int(trips.sum()), "refine_trips_real": int(trips[:n].sum())}
+            self.match_stats.append(stats)
             for k in range(n):
                 cd_frame_id = self.maps_frame_ids[ids[k]]
                 score = float(scores[k])
@@ -385,47 +392,62 @@ class ElevationImageLoopClosure(LoopClosure):
                 data_dict[key] = (transforms[k], None)
 
     def process_next_frame(self, data_dict: dict):
-        cfg = self.config
-        if self.current_frame_id > 0:
-            assert_debug(self.relative_pose_key() in data_dict,
-                         f"Key `{self.relative_pose_key()}` required per frame")
-            relative_pose = np.asarray(data_dict[self.relative_pose_key()])
-        else:
-            relative_pose = np.eye(4)
-        self.last_inserted_pose = self.last_inserted_pose @ relative_pose
+        with span("lc.frame", self.current_frame_id):
+            cfg = self.config
+            if self.current_frame_id > 0:
+                assert_debug(self.relative_pose_key() in data_dict,
+                             f"Key `{self.relative_pose_key()}` required per frame")
+                relative_pose = np.asarray(data_dict[self.relative_pose_key()])
+            else:
+                relative_pose = np.eye(4)
+            self.last_inserted_pose = self.last_inserted_pose @ relative_pose
 
-        if self.pointcloud_key() not in data_dict:
+            if self.pointcloud_key() not in data_dict:
+                self.current_frame_id += 1
+                return data_dict
+
+            pointcloud = data_dict.get("lc_pointcloud_sampled")
+            if pointcloud is None:
+                # not grid-sampled by a prefetch worker (SLAM.host_prepare)
+                pointcloud = np.asarray(data_dict[self.pointcloud_key()])
+                check_tensor(pointcloud, [-1, 3], np.ndarray)
+                with span("lc.subsample"):
+                    pointcloud = self._subsample(pointcloud, cfg.icp_num_points)
+
+            if self.current_frame_id % cfg.stride == 0:
+                self.current_map_pcs.append(
+                    transform_pointcloud(pointcloud, self.last_inserted_pose))
+                self.current_map_poses.append(self.last_inserted_pose.copy())
+                self.current_map_frameids.append(self.current_frame_id)
+
+            if len(self.current_map_pcs) >= cfg.local_map_size:
+                # Every match dispatched at an earlier submap event registers
+                # here, waiting if it must: constraint registration -- and so
+                # the frame at which the backend optimizes -- is a function of
+                # the frame stream alone, the same at any batch size.  The
+                # previous event had a submap interval of odometry to finish.
+                self.drain_pending(data_dict, wait=True)
+                with span("lc.event", self.current_frame_id):
+                    self._submap_event()
+
             self.current_frame_id += 1
             return data_dict
 
-        pointcloud = data_dict.get("lc_pointcloud_sampled")
-        if pointcloud is None:
-            # not grid-sampled by a prefetch worker (SLAM.host_prepare)
-            pointcloud = np.asarray(data_dict[self.pointcloud_key()])
-            check_tensor(pointcloud, [-1, 3], np.ndarray)
-            pointcloud = self._subsample(pointcloud, cfg.icp_num_points)
+    def _submap_event(self):
+        """The submap just completed: its candidates among the stored
+        submaps, its image and cloud stored, their match dispatched; the
+        accumulators keep the overlap."""
+        cfg = self.config
+        count("lc.events")
+        mid = len(self.current_map_pcs) // 2
+        aggregated = np.concatenate(self.current_map_pcs, axis=0)
+        mid_pose = self.current_map_poses[mid]
+        mid_frame_id = self.current_map_frameids[mid]
+        aggregated = transform_pointcloud(aggregated, np.linalg.inv(mid_pose))
 
-        if self.current_frame_id % cfg.stride == 0:
-            self.current_map_pcs.append(
-                transform_pointcloud(pointcloud, self.last_inserted_pose))
-            self.current_map_poses.append(self.last_inserted_pose.copy())
-            self.current_map_frameids.append(self.current_frame_id)
-
-        if len(self.current_map_pcs) >= cfg.local_map_size:
-            # Every match dispatched at an earlier submap event registers
-            # here, waiting if it must: constraint registration -- and so
-            # the frame at which the backend optimizes -- is a function of
-            # the frame stream alone, the same at any batch size.  The
-            # previous event had a submap interval of odometry to finish.
-            self.drain_pending(data_dict, wait=True)
-            mid = len(self.current_map_pcs) // 2
-            aggregated = np.concatenate(self.current_map_pcs, axis=0)
-            mid_pose = self.current_map_poses[mid]
-            mid_frame_id = self.current_map_frameids[mid]
-            aggregated = transform_pointcloud(aggregated, np.linalg.inv(mid_pose))
-
-            # candidate search among stored submaps
-            cand_ids: list = []
+        # candidate search among stored submaps
+        cand_ids: list = []
+        with span("lc.event.candidates"):
             lm_id_distance = max(cfg.min_id_distance //
                                  max(cfg.local_map_size - cfg.overlap, 1), 1)
             if self.maps_absolute_poses.shape[0] > lm_id_distance:
@@ -439,18 +461,15 @@ class ElevationImageLoopClosure(LoopClosure):
                     order = np.argsort(dists)[:cfg.max_num_candidates]
                     cand_ids = list(cand_idx[order])
 
-            self._event(aggregated, cand_ids, mid_frame_id)
-            self.maps_absolute_poses = np.concatenate(
-                [self.maps_absolute_poses, mid_pose[None]], axis=0)
-            self.maps_frame_ids.append(mid_frame_id)
-            self.all_frames_absolute_poses += self.current_map_poses[:-cfg.overlap]
+        self._event(aggregated, cand_ids, mid_frame_id)
+        self.maps_absolute_poses = np.concatenate(
+            [self.maps_absolute_poses, mid_pose[None]], axis=0)
+        self.maps_frame_ids.append(mid_frame_id)
+        self.all_frames_absolute_poses += self.current_map_poses[:-cfg.overlap]
 
-            self.current_map_pcs = self.current_map_pcs[-cfg.overlap:]
-            self.current_map_poses = self.current_map_poses[-cfg.overlap:]
-            self.current_map_frameids = self.current_map_frameids[-cfg.overlap:]
-
-        self.current_frame_id += 1
-        return data_dict
+        self.current_map_pcs = self.current_map_pcs[-cfg.overlap:]
+        self.current_map_poses = self.current_map_poses[-cfg.overlap:]
+        self.current_map_frameids = self.current_map_frameids[-cfg.overlap:]
 
 
 LOOP_CLOSURE = Registry("loop_closure", type_key="type")

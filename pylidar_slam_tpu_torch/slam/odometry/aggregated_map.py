@@ -34,6 +34,7 @@ from pylidar_slam_tpu_torch.ops.kernels.assoc_gn import (
 from pylidar_slam_tpu_torch.ops.optimization import solve_normal_equations
 from pylidar_slam_tpu_torch.ops.projection import point_norm
 from pylidar_slam_tpu_torch.slam.odometry.local_map import LocalMapConfig, select_state
+from pylidar_slam_tpu_torch.utils.timer import span
 
 
 @dataclass
@@ -460,42 +461,45 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
              points: torch.Tensor, mask: torch.Tensor, init_rpose: torch.Tensor):
         """Full frame: register + thresholded insert.  Returns
         (state', delta', rpose, pose_params, (loss, iters, matches, inserted))."""
-        points, mask, pixel_ordered = dequant_upload(points, mask, proj,
-                                                      upload_quantization)
-        alphas = None
-        if elastic or deskew:
-            alphas = projection.estimate_timestamps(points, clockwise=True,
-                                                    phi_0=math.pi, mask=mask)
-        if deskew and not elastic:
-            # one warp by the constant-velocity prior, before registration
-            rots, trs = se3.interpolate_pose(init_rpose, alphas)
-            points = se3.warp_points(rots, trs, points, mask)
-        t_init = state.anchor_from_cur @ init_rpose
-        t_final, it, loss, matches = register(state, points, mask, t_init, alphas)
+        with span("odometry.dequant"):
+            points, mask, pixel_ordered = dequant_upload(points, mask, proj,
+                                                          upload_quantization)
+        with span("odometry.register"):
+            alphas = None
+            if elastic or deskew:
+                alphas = projection.estimate_timestamps(points, clockwise=True,
+                                                        phi_0=math.pi, mask=mask)
+            if deskew and not elastic:
+                # one warp by the constant-velocity prior, before registration
+                rots, trs = se3.interpolate_pose(init_rpose, alphas)
+                points = se3.warp_points(rots, trs, points, mask)
+            t_init = state.anchor_from_cur @ init_rpose
+            t_final, it, loss, matches = register(state, points, mask, t_init, alphas)
 
-        # Relative pose new -> previous frame
-        rpose = se3.inverse_pose_matrix(state.anchor_from_cur) @ t_final
-        pose_params = se3.from_pose_matrix(rpose[None])[0]
+        with span("odometry.map_update"):
+            # Relative pose new -> previous frame
+            rpose = se3.inverse_pose_matrix(state.anchor_from_cur) @ t_final
+            pose_params = se3.from_pose_matrix(rpose[None])[0]
 
-        new_delta = delta_since_update @ rpose
-        d_params = se3.from_pose_matrix(new_delta[None])[0]
-        insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
-            (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
+            new_delta = delta_since_update @ rpose
+            d_params = se3.from_pose_matrix(new_delta[None])[0]
+            insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
+                (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
 
-        # Both branches of the JAX lax.cond, selected on the device.
-        if elastic:
-            # the map holds the cloud de-skewed by the final estimate
-            rots, trs = se3.interpolate_pose(rpose, alphas)
-            points = se3.warp_points(rots, trs, points, mask)
-        vmap, nmap, rimg = scan_images(points, mask,
-                                       pixel_ordered and not (elastic or deskew))
-        inserted = insert_scan(state, vmap, nmap, rimg,
-                               se3.inverse_pose_matrix(t_final), proj, max_age,
-                               model_normals_kernel=model_nks, normals_fit=nrm_fit)
-        state = select_state(insert, inserted,
-                             state._replace(anchor_from_cur=t_final))
-        eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
-        delta_out = torch.where(insert, eye, new_delta)
+            # Both branches of the JAX lax.cond, selected on the device.
+            if elastic:
+                # the map holds the cloud de-skewed by the final estimate
+                rots, trs = se3.interpolate_pose(rpose, alphas)
+                points = se3.warp_points(rots, trs, points, mask)
+            vmap, nmap, rimg = scan_images(points, mask,
+                                           pixel_ordered and not (elastic or deskew))
+            inserted = insert_scan(state, vmap, nmap, rimg,
+                                   se3.inverse_pose_matrix(t_final), proj, max_age,
+                                   model_normals_kernel=model_nks, normals_fit=nrm_fit)
+            state = select_state(insert, inserted,
+                                 state._replace(anchor_from_cur=t_final))
+            eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
+            delta_out = torch.where(insert, eye, new_delta)
         return state, delta_out, rpose, pose_params, (loss, it, matches, insert)
 
     def first_frame(state: AggMapState, points: torch.Tensor, mask: torch.Tensor):

@@ -20,7 +20,6 @@ memory behind a CUDA event and
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
@@ -35,6 +34,7 @@ from pylidar_slam_tpu_torch.slam.odometry import local_map as lm
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.slam.odometry import voxel_map as vm
 from pylidar_slam_tpu_torch.utils import assert_debug
+from pylidar_slam_tpu_torch.utils.timer import count, span
 from pylidar_slam_tpu_torch.utils.transfer import copy_to_host_async
 
 # The continuous-time pose surfaces: sweep fraction of each reported pose.
@@ -402,37 +402,39 @@ class ICPFrameToModel:
     # -- lifecycle ----------------------------------------------------------
 
     def init(self):
-        h, w = self.projector.height, self.projector.width
-        if self._mode == "projective_local_map":
-            self._map_state = lm.init_projective_map(self.local_map_size, h, w,
-                                                     self.device)
-        elif self._mode == "voxel_local_map":
-            self._map_state = vm.init_voxel_map(self._vox_cfg, self.device)
-        elif self._mode == "kdtree_local_map":
-            cfg = self._surfel_cfg
-            use_hash = str(cfg.nn_backend) == "hash"
-            self._map_state = sm.init_surfel_map(
-                self.local_map_size, int(cfg.points_per_frame), self.device,
-                hash_buckets=int(cfg.hash_buckets) if use_hash else 0,
-                hash_capacity=int(cfg.hash_capacity) if use_hash else 0)
-        else:
-            self._map_state = am.init_agg_map(h, w, self.device)
-        self._delta_since_update = torch.eye(4, dtype=torch.float32,
-                                             device=self.device)
-        # Device-side pose log: (k, 6) params per flush, fetched once.
-        self._params_log: list = []
-        # batched mode: host upload buffers, or (points, mask) device pairs
-        # of vertex-map inputs
-        self._frame_buffer: list = []
-        self._pending_params: list = []  # ([host params], event or None)
-        self._pending_rposes: list = []
-        self._iter = 0
-        self.last_rpose_device: Optional[torch.Tensor] = None
-        self._boot_cloud: Optional[np.ndarray] = None
-        # Where the batched pipeline's thread spends each flush (two clock
-        # reads a flush): staging and enqueueing the upload, and dispatching
-        # the batched step.  Read by the benches.
-        self.pipe_stats = {"upload_wait_s": 0.0, "dispatch_s": 0.0, "flushes": 0}
+        with span("odometry.init"):
+            h, w = self.projector.height, self.projector.width
+            if self._mode == "projective_local_map":
+                self._map_state = lm.init_projective_map(self.local_map_size, h, w,
+                                                         self.device)
+            elif self._mode == "voxel_local_map":
+                self._map_state = vm.init_voxel_map(self._vox_cfg, self.device)
+            elif self._mode == "kdtree_local_map":
+                cfg = self._surfel_cfg
+                use_hash = str(cfg.nn_backend) == "hash"
+                self._map_state = sm.init_surfel_map(
+                    self.local_map_size, int(cfg.points_per_frame), self.device,
+                    hash_buckets=int(cfg.hash_buckets) if use_hash else 0,
+                    hash_capacity=int(cfg.hash_capacity) if use_hash else 0)
+            else:
+                self._map_state = am.init_agg_map(h, w, self.device)
+            self._delta_since_update = torch.eye(4, dtype=torch.float32,
+                                                 device=self.device)
+            # Device-side pose log: (k, 6) params per flush, fetched once.
+            self._params_log: list = []
+            # batched mode: host upload buffers, or (points, mask) device pairs
+            # of vertex-map inputs
+            self._frame_buffer: list = []
+            self._pending_params: list = []  # ([host params], event or None)
+            self._pending_rposes: list = []
+            self._iter = 0
+            self.last_rpose_device: Optional[torch.Tensor] = None
+            self._boot_cloud: Optional[np.ndarray] = None
+            # Where the batched pipeline's thread spends each flush (the
+            # `odometry.upload` and `odometry.dispatch` spans' clock reads):
+            # staging and enqueueing the upload, and dispatching the batched
+            # step.  Read by the benches.
+            self.pipe_stats = {"upload_wait_s": 0.0, "dispatch_s": 0.0, "flushes": 0}
 
     def _viz_update(self):
         """With `viz_debug`, the local map's range image (aggregated and
@@ -469,33 +471,34 @@ class ICPFrameToModel:
         """BEV phase-correlation alignment of frame 1 to frame 0: a (4, 4)
         float32 device init pose (current frame -> previous frame), or None
         when a cloud is missing or the estimate fails its checks."""
-        cur = self._boot_cloud_of(data_dict, fallback)
-        prev = self._boot_cloud
-        if cur is None or prev is None:
-            return None
-        cfg = self.config
-        size = int(cfg.ei_bootstrap_size)
-        px = float(cfg.ei_bootstrap_pixel)
+        with span("odometry.bootstrap"):
+            cur = self._boot_cloud_of(data_dict, fallback)
+            prev = self._boot_cloud
+            if cur is None or prev is None:
+                return None
+            cfg = self.config
+            size = int(cfg.ei_bootstrap_size)
+            px = float(cfg.ei_bootstrap_pixel)
 
-        def image(cloud):
-            # Ground suppression is load-bearing: raw single-scan phase
-            # correlation locks onto the egocentric ground pattern.
-            p = torch.as_tensor(cloud, dtype=torch.float32, device=self.device)
-            return bev.build_elevation_image(p, bev.ground_suppressed_mask(p),
-                                             px, size)
+            def image(cloud):
+                # Ground suppression is load-bearing: raw single-scan phase
+                # correlation locks onto the egocentric ground pattern.
+                p = torch.as_tensor(cloud, dtype=torch.float32, device=self.device)
+                return bev.build_elevation_image(p, bev.ground_suppressed_mask(p),
+                                                 px, size)
 
-        res = bev.register_bev(image(prev), image(cur),
-                               num_yaw_steps=int(cfg.ei_bootstrap_yaw_steps),
-                               yaw_range=float(cfg.ei_bootstrap_yaw_range))
-        mat = bev.bev_transform_to_se3(res, px)
-        # The one host sync of the bootstrap (the JAX code has it too).
-        score, tx, ty = torch.stack([res.score, mat[0, 3], mat[1, 3]]).tolist()
-        # A weak correlation peak carries no usable structure; a shift beyond
-        # 80% of the correlation half-extent is aliasing territory.
-        if score < float(cfg.ei_bootstrap_min_score) or \
-                float(np.hypot(tx, ty)) > 0.4 * size * px:
-            return None
-        return mat
+            res = bev.register_bev(image(prev), image(cur),
+                                   num_yaw_steps=int(cfg.ei_bootstrap_yaw_steps),
+                                   yaw_range=float(cfg.ei_bootstrap_yaw_range))
+            mat = bev.bev_transform_to_se3(res, px)
+            # The one host sync of the bootstrap (the JAX code has it too).
+            score, tx, ty = torch.stack([res.score, mat[0, 3], mat[1, 3]]).tolist()
+            # A weak correlation peak carries no usable structure; a shift beyond
+            # 80% of the correlation half-extent is aliasing territory.
+            if score < float(cfg.ei_bootstrap_min_score) or \
+                    float(np.hypot(tx, ty)) > 0.4 * size * px:
+                return None
+            return mat
 
     def _maybe_bootstrap(self, data_dict: dict, init_pose: torch.Tensor,
                          fallback=None):
@@ -519,59 +522,60 @@ class ICPFrameToModel:
         rimg12), or the NaN-scrubbed cloud -- packed, int16-quantized or
         float32 -- bucketed to a multiple of 16384 rows (zero-padded to
         capacity on the device)."""
-        cap = self.config.num_points_padded
-        fmt = self._upload_kind()
-        if fmt == "rimg12":
-            # the buffer is its full static shape (4 pixels a row): no
-            # device padding, so the capacity is its decoded point count
-            buf = projection.np_encode_rimg12(arr[:, :3], self.projector)
-            assert_debug(cap == 4 * buf.shape[0],
-                         f"rimg12 upload needs num_points_padded == "
-                         f"{4 * buf.shape[0]} (4 x encoded rows; got {cap})")
+        with span("odometry.encode"):
+            cap = self.config.num_points_padded
+            fmt = self._upload_kind()
+            if fmt == "rimg12":
+                # the buffer is its full static shape (4 pixels a row): no
+                # device padding, so the capacity is its decoded point count
+                buf = projection.np_encode_rimg12(arr[:, :3], self.projector)
+                assert_debug(cap == 4 * buf.shape[0],
+                             f"rimg12 upload needs num_points_padded == "
+                             f"{4 * buf.shape[0]} (4 x encoded rows; got {cap})")
+                return buf
+            if fmt in ("rimg", "rimg16", "rimg8"):
+                # one point a pixel: no overflow drop; the encoders skip
+                # non-finite points themselves
+                h, w = self.projector.height, self.projector.width
+                need = h * w + ((h + w + 1) // 2 if fmt == "rimg8" else 0)
+                assert_debug(cap >= need, f"{fmt} upload needs num_points_padded "
+                                          f">= {need} (got {cap})")
+                return projection.np_encode_range_image(arr[:, :3], self.projector,
+                                                        sub16=(fmt == "rimg16"),
+                                                        planes=(fmt == "rimg8"))
+            pts = arr[:, :3].astype(np.float32)
+            nan_rows = np.isnan(pts).any(axis=1)
+            if nan_rows.any():
+                pts = pts[~nan_rows]
+            if pts.shape[0] > cap:
+                # Spatially uniform overflow drop (a stride over scan order is
+                # azimuth-uniform; head truncation would keep the top rows only).
+                pts = pts[:: -(-pts.shape[0] // cap)][:cap]
+            if fmt == "packed":
+                enc = projection.np_encode_packed_upload(pts, self.projector)
+                n = min(enc.shape[0], cap)
+                buf = np.zeros((self._bucket(n), 4), np.uint16)
+                buf[:n] = enc[:n]
+                return buf
+            n = min(pts.shape[0], cap)
+            if fmt == "int16":
+                q = float(self.config.upload_quantization)
+                chunk = pts[:n]
+                if self.config.upload_dither:
+                    if self._dither_rng is None:
+                        self._dither_rng = np.random.default_rng(0)
+                    chunk = chunk + (self._dither_rng.random(
+                        chunk.shape, dtype=np.float32) - 0.5) * q
+                steps = np.round(chunk / q)
+                # points beyond the int16 range are dropped: clamping would warp
+                # far-field geometry
+                steps[(np.abs(steps) > 32767).any(axis=1)] = 0.0
+                buf = np.zeros((self._bucket(n), 3), np.int16)
+                buf[:n] = steps
+                return buf
+            buf = np.zeros((self._bucket(n), 3), np.float32)
+            buf[:n] = pts[:n]
             return buf
-        if fmt in ("rimg", "rimg16", "rimg8"):
-            # one point a pixel: no overflow drop; the encoders skip
-            # non-finite points themselves
-            h, w = self.projector.height, self.projector.width
-            need = h * w + ((h + w + 1) // 2 if fmt == "rimg8" else 0)
-            assert_debug(cap >= need, f"{fmt} upload needs num_points_padded "
-                                      f">= {need} (got {cap})")
-            return projection.np_encode_range_image(arr[:, :3], self.projector,
-                                                    sub16=(fmt == "rimg16"),
-                                                    planes=(fmt == "rimg8"))
-        pts = arr[:, :3].astype(np.float32)
-        nan_rows = np.isnan(pts).any(axis=1)
-        if nan_rows.any():
-            pts = pts[~nan_rows]
-        if pts.shape[0] > cap:
-            # Spatially uniform overflow drop (a stride over scan order is
-            # azimuth-uniform; head truncation would keep the top rows only).
-            pts = pts[:: -(-pts.shape[0] // cap)][:cap]
-        if fmt == "packed":
-            enc = projection.np_encode_packed_upload(pts, self.projector)
-            n = min(enc.shape[0], cap)
-            buf = np.zeros((self._bucket(n), 4), np.uint16)
-            buf[:n] = enc[:n]
-            return buf
-        n = min(pts.shape[0], cap)
-        if fmt == "int16":
-            q = float(self.config.upload_quantization)
-            chunk = pts[:n]
-            if self.config.upload_dither:
-                if self._dither_rng is None:
-                    self._dither_rng = np.random.default_rng(0)
-                chunk = chunk + (self._dither_rng.random(
-                    chunk.shape, dtype=np.float32) - 0.5) * q
-            steps = np.round(chunk / q)
-            # points beyond the int16 range are dropped: clamping would warp
-            # far-field geometry
-            steps[(np.abs(steps) > 32767).any(axis=1)] = 0.0
-            buf = np.zeros((self._bucket(n), 3), np.int16)
-            buf[:n] = steps
-            return buf
-        buf = np.zeros((self._bucket(n), 3), np.float32)
-        buf[:n] = pts[:n]
-        return buf
 
     def _upload_kind(self) -> str:
         """The buffer `_compact_host_buffer` makes: the range-image format's
@@ -666,7 +670,8 @@ class ICPFrameToModel:
             pts = torch.as_tensor(vmap, device=self.device).reshape(-1, 3)
             return pts, torch.amax(torch.abs(pts), dim=-1) > 0
         buf = self._compact_host_buffer(self._input_cloud(data))
-        return self._upload(buf[None])[0], self._ones_mask()
+        with span("odometry.upload", self._iter):
+            return self._upload(buf[None])[0], self._ones_mask()
 
     def _read_input(self, data_dict: dict) -> torch.Tensor:
         """The projective map's (H, W, 3) device vertex map: a vertex-map
@@ -698,13 +703,17 @@ class ICPFrameToModel:
 
         points, mask = self._read_points(data_dict)
         if self._iter == 0:
-            self._map_state = self._first(self._map_state, points, mask)
+            with span("odometry.dispatch", 0):
+                self._map_state = self._first(self._map_state, points, mask)
+            count("odometry.frames_stepped")
             return self._started(data_dict)
 
         init_pose = self._maybe_bootstrap(data_dict, self._init_pose(data_dict))
-        (self._map_state, self._delta_since_update, rpose, pose_params,
-         _diag) = self._step(self._map_state, self._delta_since_update,
-                             points, mask, init_pose)
+        with span("odometry.dispatch", self._iter):
+            (self._map_state, self._delta_since_update, rpose, pose_params,
+             _diag) = self._step(self._map_state, self._delta_since_update,
+                                 points, mask, init_pose)
+        count("odometry.frames_stepped")
         self.last_rpose_device = rpose
         self._params_log.append(pose_params[None])
         data_dict[self.relative_pose_key()] = rpose
@@ -737,11 +746,15 @@ class ICPFrameToModel:
         and on to downstream consumers as ``odometry_pc``."""
         vmap = self._read_input(data_dict)
         if self._iter == 0:
-            self._map_state = self._first(self._map_state, vmap)
+            with span("odometry.dispatch", 0):
+                self._map_state = self._first(self._map_state, vmap)
+            count("odometry.frames_stepped")
             return self._started(data_dict)
         init_pose = self._maybe_bootstrap(data_dict, self._init_pose(data_dict))
-        self._map_state, self._delta_since_update, result = self._step(
-            self._map_state, self._delta_since_update, vmap, init_pose)
+        with span("odometry.dispatch", self._iter):
+            self._map_state, self._delta_since_update, result = self._step(
+                self._map_state, self._delta_since_update, vmap, init_pose)
+        count("odometry.frames_stepped")
         self.last_rpose_device = result.pose_matrix
         self._params_log.append(result.pose_params[None])
         data_dict[self.relative_pose_key()] = result.pose_matrix
@@ -753,30 +766,31 @@ class ICPFrameToModel:
         """Batched path: keeps the frame as a host upload buffer; the whole
         batch crosses to the device as one stacked copy at flush.  A
         vertex-map input is buffered as its device (points, mask)."""
-        data = self._input(data_dict)
-        arr = self._input_cloud(data)
-        if data.ndim == 3:  # a vertex map
-            entry = self._read_points(data_dict)
-            pc_out = arr[:, :3]
-        else:
-            # A prefetch worker may already have run encode_upload() off
-            # this thread.
-            entry = data_dict.get("encoded_upload")
-            if entry is None:
-                entry = self._compact_host_buffer(arr)
-            # Downstream consumers need METERS, not an encoded buffer.
-            pc_out = entry if entry.dtype == np.float32 else arr[:, :3]
-        if self._iter == 1 and bool(self.config.ei_bootstrap) and \
-                self._boot_cloud is not None:
-            # The CV chain starts from last_rpose_device (identity after
-            # frame 0); the BEV estimate makes frame 1's init real.
-            boot = self._ei_bootstrap_pose(data_dict, fallback=pc_out)
-            if boot is not None:
-                self.last_rpose_device = boot
-            self._boot_cloud = None
-        self._frame_buffer.append(entry)
-        self._iter += 1
-        data_dict[self.pointcloud_key()] = pc_out
+        with span("odometry.buffer", self._iter):
+            data = self._input(data_dict)
+            arr = self._input_cloud(data)
+            if data.ndim == 3:  # a vertex map
+                entry = self._read_points(data_dict)
+                pc_out = arr[:, :3]
+            else:
+                # A prefetch worker may already have run encode_upload() off
+                # this thread.
+                entry = data_dict.get("encoded_upload")
+                if entry is None:
+                    entry = self._compact_host_buffer(arr)
+                # Downstream consumers need METERS, not an encoded buffer.
+                pc_out = entry if entry.dtype == np.float32 else arr[:, :3]
+            if self._iter == 1 and bool(self.config.ei_bootstrap) and \
+                    self._boot_cloud is not None:
+                # The CV chain starts from last_rpose_device (identity after
+                # frame 0); the BEV estimate makes frame 1's init real.
+                boot = self._ei_bootstrap_pose(data_dict, fallback=pc_out)
+                if boot is not None:
+                    self.last_rpose_device = boot
+                self._boot_cloud = None
+            self._frame_buffer.append(entry)
+            self._iter += 1
+            data_dict[self.pointcloud_key()] = pc_out
         if len(self._frame_buffer) >= int(self.config.batch_size):
             self._flush_batch()
 
@@ -793,22 +807,24 @@ class ICPFrameToModel:
             return
         bufs = self._frame_buffer
         self._frame_buffer = []
-        t0 = time.perf_counter()
-        if isinstance(bufs[0], tuple):  # vertex-map inputs, on the device
-            pts = torch.stack([p for p, _ in bufs])
-            msks = torch.stack([m for _, m in bufs])
-        else:
-            pts = self._upload(self._stack(bufs))
-            msks = self._ones_mask(len(bufs))
-        t1 = time.perf_counter()
-        (self._map_state, self._delta_since_update, self.last_rpose_device,
-         params, _diags) = self._batch_step(
-            self._map_state, self._delta_since_update,
-            self.last_rpose_device, pts, msks)
+        flush = self.pipe_stats["flushes"]
+        with span("odometry.upload", flush) as upload:
+            if isinstance(bufs[0], tuple):  # vertex-map inputs, on the device
+                pts = torch.stack([p for p, _ in bufs])
+                msks = torch.stack([m for _, m in bufs])
+            else:
+                pts = self._upload(self._stack(bufs))
+                msks = self._ones_mask(len(bufs))
+        with span("odometry.dispatch", flush) as dispatch:
+            (self._map_state, self._delta_since_update, self.last_rpose_device,
+             params, _diags) = self._batch_step(
+                self._map_state, self._delta_since_update,
+                self.last_rpose_device, pts, msks)
         st = self.pipe_stats
-        st["upload_wait_s"] += t1 - t0
-        st["dispatch_s"] += time.perf_counter() - t1
+        st["upload_wait_s"] += upload.seconds
+        st["dispatch_s"] += dispatch.seconds
         st["flushes"] += 1
+        count("odometry.frames_stepped", len(bufs))
         self._params_log.append(params)
         if self.emit_batch_poses:
             self._pending_params.append(copy_to_host_async(params))
@@ -819,11 +835,16 @@ class ICPFrameToModel:
         # the flushed batches' poses come first in the pose stream
         self._collect_params(wait=True)
         for buf in self._frame_buffer:
-            points, mask = buf if isinstance(buf, tuple) else \
-                (self._upload(buf[None])[0], self._ones_mask())
-            (self._map_state, self._delta_since_update, rpose, pose_params,
-             _diag) = self._step(self._map_state, self._delta_since_update,
-                                 points, mask, self.last_rpose_device)
+            if isinstance(buf, tuple):
+                points, mask = buf
+            else:
+                with span("odometry.upload"):
+                    points, mask = self._upload(buf[None])[0], self._ones_mask()
+            with span("odometry.dispatch"):
+                (self._map_state, self._delta_since_update, rpose, pose_params,
+                 _diag) = self._step(self._map_state, self._delta_since_update,
+                                     points, mask, self.last_rpose_device)
+            count("odometry.frames_stepped")
             self.last_rpose_device = rpose
             self._params_log.append(pose_params[None])
             if self.emit_batch_poses:
@@ -834,16 +855,16 @@ class ICPFrameToModel:
         """Moves the fetched params of finished flushes, in flush order, to
         the pose stream; `wait` waits for every copy, else it stops at the
         first whose event has not completed."""
-        while self._pending_params:
-            (host,), event = self._pending_params[0]
-            if event is not None:
-                if wait:
+        with span("odometry.pose_collect"):
+            while self._pending_params:
+                (host,), event = self._pending_params[0]
+                if event is not None and not event.query():
+                    if not wait:
+                        break
                     event.synchronize()
-                elif not event.query():
-                    break
-            self._pending_params.pop(0)
-            self._pending_rposes.extend(
-                _pose_matrix_f64(p) for p in host.numpy().astype(np.float64))
+                self._pending_params.pop(0)
+                self._pending_rposes.extend(
+                    _pose_matrix_f64(p) for p in host.numpy().astype(np.float64))
 
     def drain_batch_results(self, final: bool = False) -> list:
         """Returns (and clears) float64 relative poses for the frames of the

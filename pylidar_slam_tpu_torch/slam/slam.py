@@ -8,7 +8,6 @@ rotation re-projection lives here; device state stays inside each module.
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Optional
@@ -22,6 +21,7 @@ from pylidar_slam_tpu_torch.slam.initialization import INITIALIZATION
 from pylidar_slam_tpu_torch.slam.odometry import ODOMETRY
 from pylidar_slam_tpu_torch.slam.preprocessing import Preprocessing
 from pylidar_slam_tpu_torch.utils import assert_debug
+from pylidar_slam_tpu_torch.utils.timer import span
 
 
 @dataclass
@@ -89,153 +89,157 @@ class SLAM:
 
     def init(self):
         """(Re)initializes all modules at the start of a sequence."""
-        self._frame_idx = 0
-        cfg = self.config
+        with span("slam.init"):
+            self._frame_idx = 0
+            cfg = self.config
 
-        self.initialization = None
-        if not _is_none_config(cfg.initialization):
-            self.initialization = INITIALIZATION.load(cfg.initialization, **self.__kwargs)
-            if self.initialization is not None:
-                self.initialization.init()
+            self.initialization = None
+            if not _is_none_config(cfg.initialization):
+                self.initialization = INITIALIZATION.load(cfg.initialization, **self.__kwargs)
+                if self.initialization is not None:
+                    self.initialization.init()
 
-        self.preprocessing = None
-        if cfg.preprocessing is not None:
-            self.preprocessing = Preprocessing(cfg.preprocessing, **self.__kwargs)
+            self.preprocessing = None
+            if cfg.preprocessing is not None:
+                self.preprocessing = Preprocessing(cfg.preprocessing, **self.__kwargs)
 
-        if self.odometry is None:
-            assert_debug(cfg.odometry is not None, "A SLAM requires an odometry config")
-            self.odometry = ODOMETRY.load(cfg.odometry, **self.__kwargs)
-        self.odometry.init()
+            if self.odometry is None:
+                assert_debug(cfg.odometry is not None, "A SLAM requires an odometry config")
+                self.odometry = ODOMETRY.load(cfg.odometry, **self.__kwargs)
+            self.odometry.init()
 
-        if self.loop_closure is None and not _is_none_config(cfg.loop_closure):
-            from pylidar_slam_tpu_torch.slam.loop_closure import LOOP_CLOSURE
-            self.loop_closure = LOOP_CLOSURE.load(cfg.loop_closure, **self.__kwargs)
-        if self.loop_closure is not None:
-            self.loop_closure.init()
-            if not _is_none_config(cfg.backend):
-                from pylidar_slam_tpu_torch.slam.backend import BACKEND
-                self.backend = BACKEND.load(cfg.backend, **self.__kwargs)
-            if self.backend is not None:
-                self.backend.init()
-            else:
-                logging.warning("[SLAM] Loop closure configured without a backend")
+            if self.loop_closure is None and not _is_none_config(cfg.loop_closure):
+                from pylidar_slam_tpu_torch.slam.loop_closure import LOOP_CLOSURE
+                self.loop_closure = LOOP_CLOSURE.load(cfg.loop_closure, **self.__kwargs)
+            if self.loop_closure is not None:
+                self.loop_closure.init()
+                if not _is_none_config(cfg.backend):
+                    from pylidar_slam_tpu_torch.slam.backend import BACKEND
+                    self.backend = BACKEND.load(cfg.backend, **self.__kwargs)
+                if self.backend is not None:
+                    self.backend.init()
+                else:
+                    logging.warning("[SLAM] Loop closure configured without a backend")
 
-        # Batched odometry chains constant-velocity priors on the device and
-        # never reads per-frame `init_rpose`: an initialization computing
-        # real per-frame priors (EI, PoseNet) would be silently ignored.
-        batch_size = int(_config_field(cfg.odometry, "batch_size", 1) or 1)
-        init_type = _config_field(cfg.initialization, "type")
-        if batch_size > 1 and init_type in ("ei", "posenet"):
-            raise ValueError(
-                f"slam.odometry.batch_size={batch_size} ignores per-frame "
-                f"initialization priors; initialization '{init_type}' "
-                f"computes real priors that would be silently dropped. Use "
-                f"batch_size=1 or initialization CV/NI.")
+            # Batched odometry chains constant-velocity priors on the device and
+            # never reads per-frame `init_rpose`: an initialization computing
+            # real per-frame priors (EI, PoseNet) would be silently ignored.
+            batch_size = int(_config_field(cfg.odometry, "batch_size", 1) or 1)
+            init_type = _config_field(cfg.initialization, "type")
+            if batch_size > 1 and init_type in ("ei", "posenet"):
+                raise ValueError(
+                    f"slam.odometry.batch_size={batch_size} ignores per-frame "
+                    f"initialization priors; initialization '{init_type}' "
+                    f"computes real priors that would be silently dropped. Use "
+                    f"batch_size=1 or initialization CV/NI.")
 
-        self._deferred_frames = []
-        # Batched odometry hands per-frame poses over (one host copy per
-        # flush) only when a downstream stage consumes them.
-        if hasattr(self.odometry, "emit_batch_poses"):
-            self.odometry.emit_batch_poses = (
-                self.loop_closure is not None or self.backend is not None)
+            self._deferred_frames = []
+            # Batched odometry hands per-frame poses over (one host copy per
+            # flush) only when a downstream stage consumes them.
+            if hasattr(self.odometry, "emit_batch_poses"):
+                self.odometry.emit_batch_poses = (
+                    self.loop_closure is not None or self.backend is not None)
 
     def host_prepare(self, data_dict: dict):
         """Order-independent host-side stages, safe in prefetch workers: the
         stateless preprocessing filters, the batched odometry's upload
         encoding and the loop closure's per-frame grid sample.  Stateful
         stages still run in frame order in :meth:`process_next_frame`."""
-        if self.preprocessing is not None:
-            if not self.preprocessing.worker_safe:
-                # stateful preprocessing (Distortion reads the init prior)
-                # waits for process_next_frame, and so does everything that
-                # consumes its output
-                return
-            self.preprocessing.forward(data_dict)
-            data_dict["_host_prepared"] = True
-        odom = self.odometry
-        raw = data_dict.get(getattr(odom.config, "data_key", None))
-        arr = None
-        if raw is not None and not isinstance(raw, torch.Tensor):
-            a = np.asarray(raw)
-            if a.ndim == 2 and a.shape[1] >= 3:
-                arr = a
-        if (arr is not None
-                and getattr(odom, "encode_upload", None) is not None
-                and int(getattr(odom.config, "batch_size", 1) or 1) > 1
-                and getattr(odom, "_mode", "") in ("aggregated_local_map",
-                                                   "kdtree_local_map",
-                                                   "voxel_local_map")):
-            data_dict["encoded_upload"] = odom.encode_upload(arr)
-        if arr is not None and self.loop_closure is not None and \
-                hasattr(self.loop_closure, "_subsample"):
-            # the cloud the odometry hands downstream (meters, after
-            # preprocessing), grid-sampled here in the worker
-            data_dict["lc_pointcloud_sampled"] = self.loop_closure._subsample(
-                arr[:, :3].astype(np.float32, copy=False),
-                self.loop_closure.config.icp_num_points)
+        with span("slam.host_prepare"):
+            if self.preprocessing is not None:
+                if not self.preprocessing.worker_safe:
+                    # stateful preprocessing (Distortion reads the init prior)
+                    # waits for process_next_frame, and so does everything that
+                    # consumes its output
+                    return
+                self.preprocessing.forward(data_dict)
+                data_dict["_host_prepared"] = True
+            odom = self.odometry
+            raw = data_dict.get(getattr(odom.config, "data_key", None))
+            arr = None
+            if raw is not None and not isinstance(raw, torch.Tensor):
+                a = np.asarray(raw)
+                if a.ndim == 2 and a.shape[1] >= 3:
+                    arr = a
+            if (arr is not None
+                    and getattr(odom, "encode_upload", None) is not None
+                    and int(getattr(odom.config, "batch_size", 1) or 1) > 1
+                    and getattr(odom, "_mode", "") in ("aggregated_local_map",
+                                                       "kdtree_local_map",
+                                                       "voxel_local_map")):
+                data_dict["encoded_upload"] = odom.encode_upload(arr)
+            if arr is not None and self.loop_closure is not None and \
+                    hasattr(self.loop_closure, "_subsample"):
+                # the cloud the odometry hands downstream (meters, after
+                # preprocessing), grid-sampled here in the worker
+                data_dict["lc_pointcloud_sampled"] = self.loop_closure._subsample(
+                    arr[:, :3].astype(np.float32, copy=False),
+                    self.loop_closure.config.icp_num_points)
 
     def process_next_frame(self, data_dict: dict):
-        beginning = time.time()
+        with span("slam.frame", self._frame_idx):
+            with span("slam.odometry") as odometry:
+                if self.initialization is not None:
+                    self.initialization.next_frame(data_dict)
+                if self.preprocessing is not None and \
+                        not data_dict.pop("_host_prepared", False):
+                    self.preprocessing.forward(data_dict)
+                self.odometry.process_next_frame(data_dict)
+            self.elapsed_odometry.append(odometry.seconds)
 
-        if self.initialization is not None:
-            self.initialization.next_frame(data_dict)
-        if self.preprocessing is not None and \
-                not data_dict.pop("_host_prepared", False):
-            self.preprocessing.forward(data_dict)
+            pose_key = self.odometry.relative_pose_key()
+            if pose_key in data_dict:
+                odometry_pose = data_dict[pose_key]
+                if self.initialization is not None:
+                    # CV feeds the device tensor straight back into the next step
+                    self.initialization.save_real_motion(odometry_pose, data_dict)
+                if self.loop_closure is not None or self.backend is not None:
+                    # fetched to the host only when a downstream stage needs it
+                    with span("slam.pose_fetch"):
+                        odometry_pose = _reproject_rotation(_host(odometry_pose))
+                else:
+                    odometry_pose = None
+                self._run_downstream(odometry_pose, data_dict, self._frame_idx, odometry.t1)
+            elif self.loop_closure is not None or self.backend is not None:
+                # batched odometry: the pose arrives with a later flush
+                self._deferred_frames.append((self._frame_idx, data_dict))
+                self._drain_deferred()
 
-        self.odometry.process_next_frame(data_dict)
-        step_odometry = time.time()
-        self.elapsed_odometry.append(step_odometry - beginning)
+            self._frame_idx += 1
 
-        pose_key = self.odometry.relative_pose_key()
-        if pose_key in data_dict:
-            odometry_pose = data_dict[pose_key]
-            if self.initialization is not None:
-                # CV feeds the device tensor straight back into the next step
-                self.initialization.save_real_motion(odometry_pose, data_dict)
-            if self.loop_closure is not None or self.backend is not None:
-                # fetched to the host only when a downstream stage needs it
-                odometry_pose = _reproject_rotation(_host(odometry_pose))
-            else:
-                odometry_pose = None
-            self._run_downstream(odometry_pose, data_dict, self._frame_idx, step_odometry)
-        elif self.loop_closure is not None or self.backend is not None:
-            # batched odometry: the pose arrives with a later flush
-            self._deferred_frames.append((self._frame_idx, data_dict))
-            self._drain_deferred()
-
-        self._frame_idx += 1
-
-    def _run_downstream(self, odometry_pose: Optional[np.ndarray],
-                        data_dict: dict, frame_idx: int, step_odometry: float):
-        """Loop closure + backend for one frame with a known odometry pose."""
+    def _run_downstream(self, odometry_pose: Optional[np.ndarray], data_dict: dict,
+                        frame_idx: int, step_odometry: Optional[float] = None):
+        """Loop closure + backend for one frame with a known odometry pose.
+        `elapsed_loop_closure` runs from `step_odometry` (the odometry's
+        end, on ``time.perf_counter``'s clock) where it is given."""
         if self.loop_closure is not None:
-            if odometry_pose is not None:
-                data_dict[self.loop_closure.relative_pose_key()] = odometry_pose
-            pc_key = self.odometry.pointcloud_key()
-            if "lc_pointcloud_sampled" in data_dict:
-                data_dict[self.loop_closure.pointcloud_key()] = \
-                    data_dict["lc_pointcloud_sampled"]
-            elif pc_key in data_dict:
-                value = _host(data_dict[pc_key])
-                if value.ndim == 3:  # (H, W, 3) vertex map -> point list
-                    value = value.reshape(-1, 3)
-                    value = value[np.abs(value).max(axis=1) > 0]
-                data_dict[self.loop_closure.pointcloud_key()] = value
-            self.loop_closure.process_next_frame(data_dict)
-            self.elapsed_loop_closure.append(time.time() - step_odometry)
+            with span("slam.loop_closure") as lc:
+                if odometry_pose is not None:
+                    data_dict[self.loop_closure.relative_pose_key()] = odometry_pose
+                pc_key = self.odometry.pointcloud_key()
+                if "lc_pointcloud_sampled" in data_dict:
+                    data_dict[self.loop_closure.pointcloud_key()] = \
+                        data_dict["lc_pointcloud_sampled"]
+                elif pc_key in data_dict:
+                    value = _host(data_dict[pc_key])
+                    if value.ndim == 3:  # (H, W, 3) vertex map -> point list
+                        value = value.reshape(-1, 3)
+                        value = value[np.abs(value).max(axis=1) > 0]
+                    data_dict[self.loop_closure.pointcloud_key()] = value
+                self.loop_closure.process_next_frame(data_dict)
+            self.elapsed_loop_closure.append(
+                lc.t1 - (lc.t0 if step_odometry is None else step_odometry))
 
         if self.backend is not None:
             if odometry_pose is not None:
                 data_dict[self.backend.se3_odometry_constraint(frame_idx - 1)] = \
                     (odometry_pose, None)
-            init_step = time.time()
-            self.backend.next_frame(data_dict)
-            step_backend = time.time()
+            with span("slam.backend") as backend:
+                self.backend.next_frame(data_dict)
             if self.backend.need_to_update_pose:
                 self.loop_closure.update_positions(self.backend.absolute_poses())
                 self.backend.need_to_update_pose = False
-            self.elapsed_backend.append(step_backend - init_step)
+            self.elapsed_backend.append(backend.seconds)
 
     def _drain_deferred(self, final: bool = False):
         """Runs the downstream stages of deferred frames whose batched
@@ -243,15 +247,16 @@ class SLAM:
         batch size 1)."""
         if not hasattr(self.odometry, "drain_batch_results"):
             return
-        for rpose in self.odometry.drain_batch_results(final=final):
+        with span("slam.drain"):
+            rposes = self.odometry.drain_batch_results(final=final)
+        for rpose in rposes:
             assert_debug(len(self._deferred_frames) > 0,
                          "Drained more batched poses than deferred frames")
             frame_idx, data_dict = self._deferred_frames.pop(0)
             data_dict[self.odometry.relative_pose_key()] = rpose
             if self.initialization is not None:
                 self.initialization.save_real_motion(rpose, data_dict)
-            self._run_downstream(_reproject_rotation(np.asarray(rpose)), data_dict,
-                                 frame_idx, time.time())
+            self._run_downstream(_reproject_rotation(np.asarray(rpose)), data_dict, frame_idx)
 
     def finish(self):
         """Flushes batched odometry state at the sequence's end, completes

@@ -15,6 +15,8 @@ import subprocess
 from pathlib import Path
 from typing import Sequence
 
+from pylidar_slam_tpu_torch.utils.timer import span
+
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build"
 
@@ -45,7 +47,10 @@ def build_shared_library(name: str, sources: Sequence[Path],
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cmd = list(command) + ["-o", str(tmp)] + [str(s) for s in sources]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # a compiler run, not a cache hit: `kernels.build` for the CUDA
+        # kernels, `native.build` for the host library
+        with span(f"{subdir}.build"):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
         raise BuildError(f"compiler not found: {command[0]}") from e
     if proc.returncode != 0:

@@ -1,79 +1,162 @@
-"""Timing and profiling scopes (torch port of
-``pylidar_slam_tpu.utils.timer``).
+"""The port's spans and counters, and a profiler scope.
 
-* ``Duration`` / ``timer`` -- wall-clock scopes with aggregation.
-* ``device_timer`` -- a scope that waits for the device before it stops:
-  ``torch.cuda.synchronize`` on the device of the tensor set as its
-  ``sync`` (a CPU tensor needs no wait).
-* ``trace`` -- a ``torch.profiler`` scope whose trace is written as a
-  Chrome trace under a directory.
+One registry per process, in memory, safe to use from any thread:
+
+* ``span(name, index=None)`` -- ``with span("odometry.upload"):`` times a
+  stage with two ``time.perf_counter()`` reads and adds its seconds, its
+  self seconds (less the spans opened inside it on the same thread) and a
+  call to `name`.  The object keeps ``t0``, ``t1`` and ``seconds`` for a
+  caller that keeps its own log from the same reads.  While a
+  ``torch.profiler`` runs on the calling thread, the span is also a
+  profiler event named ``pls.<name>`` (with `index`, a frame or flush
+  number, among its arguments when the profiler records shapes), so it
+  sits on the kernels' clock in the trace.  The event is a function-scope
+  record, the scope of PyTorch's own operators: unlike
+  ``torch.profiler.record_function`` (a user annotation) it leaves no
+  mirror on the device's timeline, and it is never entered with no
+  profiler running (``record_function`` costs ~9 us a use even then on an
+  H100 machine's host; a span ~1.6 us).
+* ``count(name, n=1)`` -- a work count.
+* ``snapshot()`` -- every span and count as one flat dict of numbers:
+  ``span.<name>.s``, ``span.<name>.self_s``, ``span.<name>.n``,
+  ``count.<name>``; ``delta(before, after)`` is the work between two.
+
+``trace(log_dir)`` profiles a scope and writes a Chrome / Perfetto timeline
+that holds the program's spans beside the kernels.
 """
 from __future__ import annotations
 
 import contextlib
-import time
-from collections import defaultdict
+import threading
 from pathlib import Path
-from typing import Dict
+from time import perf_counter
+from typing import Dict, Optional
 
 import torch
 
+PROFILER_PREFIX = "pls."
 
-class Duration:
-    """Aggregates elapsed seconds per named scope."""
+_profiling = torch.autograd._profiler_enabled
+_lock = threading.Lock()
+_threads: list = []  # every thread's _Thread, in the order they first used one
+_local = threading.local()
+
+
+class _Thread:
+    """A thread's own totals (only that thread writes them, so a span takes
+    no lock) and its innermost open span."""
+    __slots__ = ("spans", "counts", "top")
 
     def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+        self.spans: Dict[str, list] = {}  # name -> [seconds, self seconds, calls]
+        self.counts: Dict[str, float] = {}
+        self.top = None
+        with _lock:
+            _threads.append(self)
 
-    @contextlib.contextmanager
-    def scope(self, name: str):
-        start = time.perf_counter()
+
+def _thread() -> _Thread:
+    try:
+        return _local.state
+    except AttributeError:
+        _local.state = _Thread()
+        return _local.state
+
+
+def _profiler_event(name: str, index):
+    record = torch._C._profiler._RecordFunctionFast
+    rf = record(PROFILER_PREFIX + name) if index is None else \
+        record(PROFILER_PREFIX + name, [], {"index": index})
+    rf.__enter__()
+    return rf
+
+
+class span:
+    """A timed stage: ``with span(name[, index]) as s:``; see the module's
+    docstring."""
+    __slots__ = ("name", "index", "t0", "t1", "_thread", "_parent", "_child_s", "_event")
+
+    def __init__(self, name: str, index: Optional[int] = None):
+        self.name = name
+        self.index = index
+
+    def __enter__(self) -> "span":
         try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - start
-            self.counts[name] += 1
+            th = _local.state
+        except AttributeError:
+            th = _thread()
+        self._thread = th
+        self._event = _profiler_event(self.name, self.index) if _profiling() else None
+        self._parent = th.top
+        th.top = self
+        self._child_s = 0.0
+        self.t0 = perf_counter()
+        return self
 
-    def mean(self, name: str) -> float:
-        return self.totals[name] / max(self.counts[name], 1)
+    def __exit__(self, *exc) -> bool:
+        self.t1 = t1 = perf_counter()
+        if self._event is not None:
+            self._event.__exit__(None, None, None)
+        seconds = t1 - self.t0
+        th, parent = self._thread, self._parent
+        th.top = parent
+        if parent is not None:
+            parent._child_s += seconds
+        rec = th.spans.get(self.name)
+        if rec is None:
+            rec = th.spans[self.name] = [0.0, 0.0, 0]
+        rec[0] += seconds
+        rec[1] += seconds - self._child_s
+        rec[2] += 1
+        return False
 
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals):
-            lines.append(f"{name}: total {self.totals[name]:.3f}s over "
-                         f"{self.counts[name]} calls "
-                         f"({1000 * self.mean(name):.2f} ms/call)")
-        return "\n".join(lines)
+    @property
+    def seconds(self) -> float:
+        return self.t1 - self.t0
 
 
-@contextlib.contextmanager
-def timer(name: str = "", log=print):
-    start = time.perf_counter()
-    yield
-    log(f"[timer] {name}: {1000 * (time.perf_counter() - start):.2f} ms")
+def count(name: str, n: float = 1) -> None:
+    try:
+        counts = _local.state.counts
+    except AttributeError:
+        counts = _thread().counts
+    counts[name] = counts.get(name, 0) + n
 
 
-@contextlib.contextmanager
-def device_timer(name: str = "", sync_array=None, log=print):
-    """Times a scope including the device's completion of `sync_array` (or
-    of the tensor set on the context object's ``.sync`` inside the scope)."""
+def snapshot() -> Dict[str, float]:
+    """Every thread's spans and counts, summed by name."""
+    with _lock:
+        threads = list(_threads)
+    spans: Dict[str, list] = {}
+    counts: Dict[str, float] = {}
+    for th in threads:
+        for name, rec in list(th.spans.items()):
+            tot = spans.setdefault(name, [0.0, 0.0, 0])
+            for k in range(3):
+                tot[k] += rec[k]
+        for name, n in list(th.counts.items()):
+            counts[name] = counts.get(name, 0) + n
+    out = {}
+    for name, (s, self_s, n) in spans.items():
+        out[f"span.{name}.s"] = s
+        out[f"span.{name}.self_s"] = self_s
+        out[f"span.{name}.n"] = n
+    for name, n in counts.items():
+        out[f"count.{name}"] = n
+    return out
 
-    class _Ctx:
-        sync = sync_array
 
-    ctx = _Ctx()
-    start = time.perf_counter()
-    yield ctx
-    if isinstance(ctx.sync, torch.Tensor) and ctx.sync.device.type == "cuda":
-        torch.cuda.synchronize(ctx.sync.device)
-    log(f"[device_timer] {name}: {1000 * (time.perf_counter() - start):.2f} ms")
+def delta(before: Dict[str, float], after: Dict[str, float]) -> Dict[str, float]:
+    """`after` less `before`, over the keys of `after` (a span or count
+    first used in between counts from 0)."""
+    return {k: v - before.get(k, 0) for k, v in after.items()}
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler scope (CPU, and CUDA where there is a card); the trace
-    lands in `log_dir`/trace.json (chrome://tracing, Perfetto)."""
+    lands in `log_dir`/trace.json (chrome://tracing, Perfetto), with the
+    program's spans as ``pls.<name>`` events."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

@@ -226,25 +226,23 @@ def test_csv_poses_match_pandas_both_ways(tmp_path):
 
 
 def test_timer_and_module_flags():
-    d = ttimer.Duration()
+    before = ttimer.snapshot()
     for _ in range(3):
-        with d.scope("a"):
-            pass
-    assert d.counts["a"] == 3 and "over 3 calls" in d.report()
-    lines = []
-    with ttimer.timer("t", log=lines.append):
-        pass
-    with ttimer.device_timer("d", log=lines.append) as ctx:
-        ctx.sync = torch.ones(3)
-    assert lines[0].startswith("[timer] t:") and lines[1].startswith("[device_timer] d:")
+        with ttimer.span("viz.a") as s:
+            ttimer.count("viz.items", 2)
+    d = ttimer.delta(before, ttimer.snapshot())
+    assert d["span.viz.a.n"] == 3 and d["count.viz.items"] == 6
+    assert 0 < s.seconds <= d["span.viz.a.s"] == d["span.viz.a.self_s"]
     for flag in ("_with_cv2", "_with_o3d", "_with_g2o", "_with_viz3d", "_with_ct_icp"):
         assert getattr(tmodules, flag) == getattr(jmodules, flag), flag
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with ttimer.trace(str(tmp_path)):
-        torch.ones(64).sum()
-    assert json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+        with ttimer.span("viz.traced"):
+            torch.ones(64).sum()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "pls.viz.traced" for e in events)
 
 
 # ----------------------------------------------------------------------------
