@@ -248,7 +248,7 @@ from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import (ICPFrameToModel,
                                                                ICPFrameToModelConfig)
 from pylidar_slam_tpu_torch.slam.slam import SLAM
-from pylidar_slam_tpu_torch.utils import device_timing, native
+from pylidar_slam_tpu_torch.utils import device_timing, native, timer
 from pylidar_slam_tpu_torch.utils.device_timing import graph_ms, time_calls
 
 ROOT = Path(__file__).resolve().parent
@@ -1294,22 +1294,31 @@ def decode_check(frame, proj, dev) -> dict:
 
 def batch_sync_check(name, odom, frames) -> None:
     """One batched step of `odom` on `frames` (one batch) under
-    ``torch.cuda.set_sync_debug_mode("error")``; the batch is encoded and
-    uploaded before the mode is set."""
+    ``torch.cuda.set_sync_debug_mode("error")``, eagerly and then as the
+    replays of the CUDA graph its run captured (the run's batched path);
+    the batch is encoded and uploaded before the mode is set."""
     bufs = [odom._compact_host_buffer(np.asarray(f["numpy_pc"])) for f in frames]
     pts, msks = odom._upload(odom._stack(bufs)), odom._ones_mask(len(bufs))
+    if (pts.dtype,) + tuple(pts.shape[1:]) not in odom._graphs:
+        raise AssertionError(f"{name}: the run captured no CUDA graph for its uploads")
     torch.cuda.synchronize()
+    replays = timer.snapshot().get("count.odometry.graph_replays", 0)
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = odom._batch_step(odom._map_state, odom._delta_since_update,
                                odom.last_rpose_device, pts, msks)
+        replayed = odom._step_graphed(pts, msks)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(out[3]).all()):
-        raise AssertionError(f"{name}: the checked batch's poses are not finite")
-    log(f"[sync] {name}: one batched step of {len(bufs)} frames under "
-        f"set_sync_debug_mode('error'), no host sync")
+    replays = timer.snapshot().get("count.odometry.graph_replays", 0) - replays
+    if replays != len(bufs):
+        raise AssertionError(f"{name}: {replays} replays for a batch of {len(bufs)}")
+    if not (bool(torch.isfinite(out[3]).all()) and bool(torch.equal(replayed, out[3]))):
+        raise AssertionError(f"{name}: the checked batch's poses are not finite, or the "
+                             "replays' differ from the eager step's")
+    log(f"[sync] {name}: one batched step of {len(bufs)} frames, eager and replayed, under "
+        f"set_sync_debug_mode('error'), no host sync; the same poses")
 
 
 def codecs_phase(dev, card) -> dict:

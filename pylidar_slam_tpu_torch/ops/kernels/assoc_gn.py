@@ -9,12 +9,20 @@ raises; it never falls back.
 Output: one (30,) float32 tensor -- the 21 upper-triangle entries of
 H = sum w^2 J J^T (row-major), g = sum w^2 J r (6), the loss sum (w r)^2,
 the match count and the weight mass sum w^2 (``unpack`` splits it).
+
+``assoc_gn.launches`` counts the kernel's runs.  Inside ``capture(device)``
+(a CUDA graph's capture on the calling thread) a launch is recorded, not
+run: it takes its tickets from the graph's own counter and is counted on
+the scope's object, and each replay of the graph adds that count with
+``add_launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -167,6 +175,40 @@ def _counter(device_index: int, stream: int) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", device_index))
 
 
+class _Capture:
+    """A CUDA-graph capture's B1 state: the graph's ticket counter, zeroed
+    before the capture and left at 0 by every replay, and the launches the
+    capture recorded."""
+
+    def __init__(self, device: torch.device):
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.launches = 0
+
+
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def capture(device: torch.device):
+    """The scope of a CUDA-graph capture on this thread: B1's launches in
+    it draw tickets from a counter of the graph's own (made here, before
+    the capture begins, so nothing is allocated inside it; a graph may be
+    replayed on any stream) and are counted in the yielded object's
+    ``launches``, not in ``assoc_gn.launches``.  The graph's nodes hold the
+    counter's address: keep the yielded ``counter`` as long as the graph."""
+    _capturing.scope = scope = _Capture(device)
+    try:
+        yield scope
+    finally:
+        _capturing.scope = None
+
+
+def add_launches(n: int) -> None:
+    """Counts `n` launches a graph replay ran."""
+    with LAUNCH_LOCK:
+        assoc_gn.launches += n
+
+
 def build() -> None:
     """Builds and loads the kernel library (raises BuildError on failure)."""
     _library()
@@ -217,7 +259,9 @@ def assoc_gn(timg: torch.Tensor, model_xyz: torch.Tensor,
                            dtype=torch.float32, device=timg.device)
     out = torch.empty(NUM_OUT, dtype=torch.float32, device=timg.device)
     stream = torch.cuda.current_stream(timg.device)
-    counter = _counter(_device_index(timg.device), stream.cuda_stream)
+    scope = getattr(_capturing, "scope", None)
+    counter = scope.counter if scope is not None else \
+        _counter(_device_index(timg.device), stream.cuda_stream)
     err = lib.assoc_gn_launch(
         timg.data_ptr(), model_xyz.data_ptr(), model_normal.data_ptr(),
         model_valid.data_ptr(), h, w, int(wr), int(wc),
@@ -227,8 +271,10 @@ def assoc_gn(timg: torch.Tensor, model_xyz: torch.Tensor,
         stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"assoc_gn launch failed with cudaError_t {err}")
-    with LAUNCH_LOCK:  # job threads launch concurrently
-        assoc_gn.launches += 1
+    if scope is not None:
+        scope.launches += 1
+    else:
+        add_launches(1)  # job threads launch concurrently
     return out
 
 

@@ -529,4 +529,7 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
         stacked = tuple(torch.stack(d) for d in zip(*diags))
         return state, delta, rpose, torch.stack(params), stacked
 
+    # Fixed shapes, no host read and no allocation outside PyTorch's
+    # allocator: the odometry may capture the step in a CUDA graph.
+    step.graph_safe = True
     return step, first_frame, batch_step

@@ -16,6 +16,12 @@ whole log at once; when a downstream stage needs them per frame
 (``emit_batch_poses``), each batch's params are copied to pinned host
 memory behind a CUDA event and
 ``drain_batch_results`` hands over the batches whose copy has landed.
+
+On a CUDA device, a map whose step maker declares its step graph-safe (the
+aggregated map) has its batched frames stepped by replays of one CUDA graph
+of that step (``_FrameGraph``) from the second batch after ``init()`` on:
+the same kernels in the same order, enqueued by one call a frame instead
+of ~2,000.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch.distributed as dist
 
 from pylidar_slam_tpu_torch.config import MISSING, dataclass_from_dict
 from pylidar_slam_tpu_torch.ops import bev, optimization, projection, se3
+from pylidar_slam_tpu_torch.ops.kernels import assoc_gn as b1
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
 from pylidar_slam_tpu_torch.slam.odometry import local_map as lm
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
@@ -256,6 +263,76 @@ def make_icp_frame_step(proj: projection.SphericalProjection,
     return step, first_frame, build_vmap_from_points
 
 
+class _FrameGraph:
+    """A map's per-frame step captured once as a CUDA graph over static
+    slots: the frame's upload and mask, the map state, the motion since the
+    last insert and the last relative pose (the next frame's prior).  The
+    graph's last nodes write the step's state and pose back into the slots,
+    so replay i+1 reads what replay i wrote; its pose params land in
+    ``params``, which each replay copies out."""
+
+    def __init__(self, step, state, delta, rpose, points, mask):
+        self.step = step
+        self.state = type(state)(*(t.clone() for t in state))
+        self.delta, self.rpose = delta.clone(), rpose.clone()
+        self.points, self.mask = torch.empty_like(points), torch.empty_like(mask)
+        self.graph = None
+        self.params = None
+        # B1's ticket counter in the graph: the graph's nodes hold its
+        # address, so it lives as long as the graph
+        self.counter = None
+        self.launches = 0  # B1 launches a replay runs
+
+    @staticmethod
+    def runs_on(device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    def load(self, state, delta, rpose):
+        """Copies (state, delta, rpose) into the slots, each tensor that is
+        not its slot already: what an eager step or another graph left, or,
+        inside the step, what it computed."""
+        for slot, value in zip(self.state + (self.delta, self.rpose),
+                               tuple(state) + (delta, rpose)):
+            if slot is not value:
+                slot.copy_(value)
+
+    def _frame(self) -> torch.Tensor:
+        state, delta, rpose, params, _ = self.step(self.state, self.delta, self.points,
+                                                    self.mask, self.rpose)
+        self.load(state, delta, rpose)
+        return params
+
+    def capture(self, points, mask, out):
+        """Steps one frame eagerly on a stream of the graph's own, which
+        warms what that stream has not run (cuBLAS's workspace, the
+        kernels' first calls), then captures the step there.  Other threads
+        may use the card meanwhile."""
+        main = torch.cuda.current_stream(points.device)
+        side = torch.cuda.Stream(points.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.points.copy_(points)
+            self.mask.copy_(mask)
+            out.copy_(self._frame())
+            graph = torch.cuda.CUDAGraph()
+            with b1.capture(points.device) as recorded:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    params = self._frame()
+                finally:
+                    graph.capture_end()
+        main.wait_stream(side)
+        self.graph, self.params = graph, params
+        self.counter, self.launches = recorded.counter, recorded.launches
+
+    def replay(self, points, mask, out):
+        self.points.copy_(points)
+        self.mask.copy_(mask)
+        self.graph.replay()
+        out.copy_(self.params)
+        b1.add_launches(self.launches)
+
+
 def _shard_group(n_shard: int):
     """The process group of `shard_points` = n_shard: None for n_shard <= 1;
     else the first n_shard ranks of the initialized default group (ranks
@@ -392,6 +469,8 @@ class ICPFrameToModel:
                 elastic=self._elastic,
                 alignment_mode=str(align_cfg.get("mode", "point_to_plane_gauss_newton")),
             )
+        # the map's maker declares whether its step may be captured
+        self._graph_safe = bool(getattr(self._step, "graph_safe", False))
         # Batched mode: when True, every flush copies its (B, 6) params to
         # pinned host memory (one transfer per batch, behind a CUDA event)
         # and drain_batch_results hands per-frame float64 relative poses to
@@ -427,6 +506,11 @@ class ICPFrameToModel:
             self._frame_buffer: list = []
             self._pending_params: list = []  # ([host params], event or None)
             self._pending_rposes: list = []
+            # the step's CUDA graphs, by the frame upload's (dtype, rows, cols)
+            self._graphs: dict = {}
+            # the first batch after init() steps eagerly, which warms cuBLAS,
+            # cuSOLVER and the allocator before any capture
+            self._graph_warm = False
             self._iter = 0
             self.last_rpose_device: Optional[torch.Tensor] = None
             self._boot_cloud: Optional[np.ndarray] = None
@@ -816,10 +900,12 @@ class ICPFrameToModel:
                 pts = self._upload(self._stack(bufs))
                 msks = self._ones_mask(len(bufs))
         with span("odometry.dispatch", flush) as dispatch:
-            (self._map_state, self._delta_since_update, self.last_rpose_device,
-             params, _diags) = self._batch_step(
-                self._map_state, self._delta_since_update,
-                self.last_rpose_device, pts, msks)
+            params = self._step_graphed(pts, msks)
+            if params is None:
+                (self._map_state, self._delta_since_update, self.last_rpose_device,
+                 params, _diags) = self._batch_step(
+                    self._map_state, self._delta_since_update,
+                    self.last_rpose_device, pts, msks)
         st = self.pipe_stats
         st["upload_wait_s"] += upload.seconds
         st["dispatch_s"] += dispatch.seconds
@@ -841,15 +927,51 @@ class ICPFrameToModel:
                 with span("odometry.upload"):
                     points, mask = self._upload(buf[None])[0], self._ones_mask()
             with span("odometry.dispatch"):
-                (self._map_state, self._delta_since_update, rpose, pose_params,
-                 _diag) = self._step(self._map_state, self._delta_since_update,
-                                     points, mask, self.last_rpose_device)
+                pose_params = self._step_graphed(points[None], mask[None])
+                if pose_params is None:
+                    (self._map_state, self._delta_since_update, self.last_rpose_device,
+                     pose_params, _diag) = self._step(
+                        self._map_state, self._delta_since_update, points, mask,
+                        self.last_rpose_device)
+                    pose_params = pose_params[None]
             count("odometry.frames_stepped")
-            self.last_rpose_device = rpose
-            self._params_log.append(pose_params[None])
+            self._params_log.append(pose_params)
             if self.emit_batch_poses:
-                self._pending_params.append(copy_to_host_async(pose_params[None]))
+                self._pending_params.append(copy_to_host_async(pose_params))
         self._frame_buffer = []
+
+    def _step_graphed(self, pts: torch.Tensor, msks: torch.Tensor) -> Optional[torch.Tensor]:
+        """Steps frames pts[i] (masks msks[i]) in order by replays of the
+        step's CUDA graph for their key, captured at the key's first use
+        (whose first frame runs eagerly), and returns their (B, 6) params;
+        None where the step runs eagerly: on the CPU, for a map whose step
+        is not graph-safe, and for the first batch after ``init()``, which
+        warms the libraries and the allocator."""
+        if not (self._graph_safe and _FrameGraph.runs_on(pts.device)):
+            return None
+        if not self._graph_warm:
+            self._graph_warm = True
+            return None
+        params = torch.empty((pts.shape[0], 6), dtype=torch.float32, device=pts.device)
+        key = (pts.dtype,) + tuple(pts.shape[1:])
+        graph = self._graphs.get(key)
+        first = 0
+        if graph is None:
+            graph = _FrameGraph(self._step, self._map_state, self._delta_since_update,
+                                self.last_rpose_device, pts[0], msks[0])
+            graph.capture(pts[0], msks[0], params[0])
+            self._graphs[key] = graph
+            count("odometry.graph_captures")
+            first = 1
+        else:
+            graph.load(self._map_state, self._delta_since_update, self.last_rpose_device)
+        for i in range(first, pts.shape[0]):
+            with span("odometry.replay"):
+                graph.replay(pts[i], msks[i], params[i])
+        count("odometry.graph_replays", pts.shape[0] - first)
+        self._map_state, self._delta_since_update, self.last_rpose_device = \
+            graph.state, graph.delta, graph.rpose
+        return params
 
     def _collect_params(self, wait: bool):
         """Moves the fetched params of finished flushes, in flush order, to

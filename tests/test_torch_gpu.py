@@ -261,3 +261,218 @@ def test_icp_refine_on_b2_matches_the_cpu(cuda):
     assert torch.equal(dev.num_iters.cpu(), cpu.num_iters)
     assert int(dev.num_iters[2]) == 0
     np.testing.assert_allclose(dev.transform.cpu().numpy(), cpu.transform.numpy(), atol=1e-4)
+
+
+# -- the batched aggregated odometry as CUDA-graph replays --------------------
+
+GRAPH_H, GRAPH_W, GRAPH_B = 64, 1024, 4
+GRAPH_N = 1 + 4 * GRAPH_B + 2  # frame 0, four batches, a remainder of 2
+GRAPH_COUNTS = ("count.odometry.graph_captures", "count.odometry.graph_replays")
+
+
+def _graph_frames(upload):
+    """The acceptance world's frames at 64 x 1,024; the third batch as
+    (H, W, 3) vertex maps, a new upload key.  For float32 uploads every
+    third frame carries 30,000 zero rows (invalid points), which moves its
+    host bucket from 65,536 to 98,304 rows."""
+    from pylidar_slam_tpu_torch.dataset.synthetic import (SyntheticConfig,
+                                                          SyntheticDatasetLoader)
+    from pylidar_slam_tpu_torch.eval import acceptance
+    from pylidar_slam_tpu_torch.ops import projection
+    loader = SyntheticDatasetLoader(SyntheticConfig(**dict(
+        acceptance.SEQ_KW, lidar_height=GRAPH_H, lidar_width=GRAPH_W, num_frames=GRAPH_N)))
+    ds = loader.sequences()[0][0][0]
+    proj = loader.projector()
+    frames = []
+    for i in range(GRAPH_N):
+        pc = ds[i]["numpy_pc"]
+        if 1 + 2 * GRAPH_B <= i < 1 + 3 * GRAPH_B:
+            pts = torch.from_numpy(pc)
+            pc = projection.build_vertex_map(pts, proj, mask=torch.ones(len(pts), dtype=torch.bool)).numpy()
+        elif upload == "f32" and i % 3 == 0:
+            pc = np.concatenate([pc, np.zeros((30000, 3), np.float32)])
+        frames.append({"numpy_pc": pc})
+    return loader.projector(), frames
+
+
+def _graph_odometry(proj, upload, cuda, graphed=True):
+    import dataclasses
+    from pylidar_slam_tpu_torch.eval import acceptance
+    from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
+    over = dict(batch_size=GRAPH_B, device=str(cuda), upload_format=upload)
+    if upload == "f32":
+        over["num_points_padded"] = 6 * 16384
+    odom = ICPFrameToModel(dataclasses.replace(acceptance.champion_configs()["aggregated"],
+                                               **over), projector=proj)
+    if not graphed:  # the eager reference: every batch through `_batch_step`
+        odom._step_graphed = lambda pts, msks: None
+    return odom
+
+
+def _run_graph_frames(odom, frames):
+    from pylidar_slam_tpu_torch.utils import timer
+    before, launches = timer.snapshot(), b1.assoc_gn.launches
+    for f in frames:
+        odom.process_next_frame(dict(f))
+    params = odom.fetch_params_log()
+    after = timer.snapshot()
+    counts = {k: after.get(k, 0) - before.get(k, 0) for k in GRAPH_COUNTS}
+    return params, [t.clone() for t in odom._map_state], counts, b1.assoc_gn.launches - launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("upload", ["rimg8", "f32"])
+def test_graphed_odometry_equals_eager(cuda, upload):
+    """Replays against eager steps over four batches and a remainder:
+    poses and map state equal to the bit.  The float32 bucket change keeps
+    the graph (frames are padded to capacity on the card); the vertex-map
+    batch captures a second graph.  B1 counts 8 launches a stepped frame
+    either way: a capture is not counted, each replay adds its 8."""
+    proj, frames = _graph_frames(upload)
+    eager = _run_graph_frames(_graph_odometry(proj, upload, cuda, False), frames)
+    graphed = _run_graph_frames(_graph_odometry(proj, upload, cuda, True), frames)
+    assert np.array_equal(graphed[0], eager[0])
+    for a, b in zip(graphed[1], eager[1]):
+        assert torch.equal(a, b)
+    assert eager[2] == {k: 0 for k in GRAPH_COUNTS}
+    # batch 1 eager; 2 captures (its first frame eager) and replays 3; 3
+    # captures the vertex-map key and replays 3; 4 and the remainder replay
+    assert graphed[2] == {"count.odometry.graph_captures": 2,
+                          "count.odometry.graph_replays": 3 + 3 + GRAPH_B + 2}
+    assert eager[3] == graphed[3] == 8 * (GRAPH_N - 1)
+
+
+@pytest.mark.gpu
+def test_replay_under_sync_debug_and_profiler(cuda):
+    """A flush of replays makes no host sync, adds 8 B1 launches a frame,
+    and the profiler sees every replayed B1 kernel by its name, the graph
+    having been captured before the profiler started."""
+    from torch.profiler import ProfilerActivity, profile
+    proj, frames = _graph_frames("rimg8")
+    odom = _graph_odometry(proj, "rimg8", cuda)
+    _run_graph_frames(odom, frames[:1 + 2 * GRAPH_B])  # the capture
+    from pylidar_slam_tpu_torch.utils import timer
+    batch = frames[1:1 + GRAPH_B]
+    torch.cuda.synchronize()
+    before, launches = timer.snapshot(), b1.assoc_gn.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in batch:
+            odom.process_next_frame(dict(f))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = timer.snapshot()
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in GRAPH_COUNTS} == \
+        {"count.odometry.graph_captures": 0, "count.odometry.graph_replays": GRAPH_B}
+    assert b1.assoc_gn.launches - launches == 8 * GRAPH_B
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):  # the profiler may drop a window's first records
+            torch.cuda._sleep(1000)
+        _run_graph_frames(odom, batch)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("assoc_gn" in n for n in names) == 8 * GRAPH_B
+
+
+def _block_state(ptr):
+    """The caching allocator's state of the block that holds address `ptr`."""
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            addr = blk.get("address", addr)
+            if addr <= ptr < addr + blk["size"]:
+                return blk["state"]
+            addr += blk["size"]
+    return None
+
+
+def _fill_free_small_blocks(cuda):
+    """Takes every free block of the allocator's small pools on PyTorch's
+    32 pool streams (where a capture's stream comes from) with 512-byte
+    tensors of 7s, and returns them."""
+    free = {}
+    for seg in torch.cuda.memory_snapshot():
+        if seg.get("segment_type") == "small" and \
+                tuple(seg.get("segment_pool_id", (0, 0))) == (0, 0):  # not a graph's pool
+            n = sum(b["size"] for b in seg["blocks"] if b["state"] == "inactive") // 512
+            free[seg["stream"]] = free.get(seg["stream"], 0) + n
+    fillers = []
+    for _ in range(32):
+        stream = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(stream):
+            fillers += [torch.full((1,), 7, dtype=torch.int32, device=cuda)
+                        for _ in range(free.get(stream.cuda_stream, 0))]
+    torch.cuda.synchronize()
+    return fillers
+
+
+@pytest.mark.gpu
+def test_graph_keeps_b1_counter_alive(cuda, monkeypatch):
+    """A graph's B1 ticket counter lives as long as the graph: once the
+    capture has returned and its scope is collected, the counter's block is
+    still allocated; with every free small block of the pool streams then
+    taken by tensors of 7s, the later replays equal the eager path and
+    write none of those tensors."""
+    import contextlib
+    import gc
+    counters = []
+    capture = b1.capture
+
+    @contextlib.contextmanager
+    def recorded(device):
+        with capture(device) as scope:
+            counters.append(scope.counter.data_ptr())
+            yield scope
+    monkeypatch.setattr(b1, "capture", recorded)
+    proj, frames = _graph_frames("rimg8")
+    eager = _run_graph_frames(_graph_odometry(proj, "rimg8", cuda, False), frames)
+    odom = _graph_odometry(proj, "rimg8", cuda)
+    head = 1 + 2 * GRAPH_B  # frame 0, the eager batch, the captured one
+    _run_graph_frames(odom, frames[:head])
+    gc.collect()
+    assert len(counters) == 1 and _block_state(counters[0]) == "active_allocated"
+    fillers = _fill_free_small_blocks(cuda)
+    graphed = _run_graph_frames(odom, frames[head:])
+    assert np.array_equal(graphed[0], eager[0])
+    for a, b in zip(graphed[1], eager[1]):
+        assert torch.equal(a, b)
+    # the rimg8 graph replays after the fill: batch 4 and the remainder
+    assert graphed[2]["count.odometry.graph_replays"] == 3 + GRAPH_B + 2
+    assert all(_block_state(c) == "active_allocated" for c in counters)
+    assert fillers and bool(torch.cat(fillers).eq(7).all())
+
+
+@pytest.mark.gpu
+def test_graphed_elastic_odometry_equals_eager(cuda):
+    """The CT-ICP profile's elastic step on rolling-shutter scans, batched
+    by 4 (its configurations step one frame at a time, eagerly; a caller
+    may batch them): replays equal to eager steps bit for bit, poses, map
+    state and the begin and end pose surfaces, with 12 B1 launches a frame."""
+    import dataclasses
+    from pylidar_slam_tpu_torch.dataset.synthetic import (SyntheticConfig,
+                                                          SyntheticDatasetLoader)
+    from pylidar_slam_tpu_torch.eval import acceptance
+    from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
+    n = 1 + 3 * GRAPH_B + 2
+    loader = SyntheticDatasetLoader(SyntheticConfig(**dict(acceptance.ROLLING_SHUTTER_KW,
+                                                           num_frames=n)))
+    ds = loader.sequences()[0][0][0]
+    frames = [ds[i] for i in range(n)]
+    cfg = dataclasses.replace(acceptance.profile_configs()["ct_icp"], batch_size=GRAPH_B,
+                              device=str(cuda))
+    runs = []
+    for graphed in (False, True):
+        odom = ICPFrameToModel(cfg, projector=loader.projector())
+        if not graphed:
+            odom._step_graphed = lambda pts, msks: None
+        run = _run_graph_frames(odom, frames)
+        runs.append(run + ([odom.get_ct_relative_poses(s) for s in ("begin_pose", "end_pose")],))
+    eager, graphed = runs
+    assert np.array_equal(graphed[0], eager[0])
+    for a, b in zip(graphed[1], eager[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(graphed[4], eager[4]):
+        assert np.array_equal(a, b)
+    assert graphed[2] == {"count.odometry.graph_captures": 1,
+                          "count.odometry.graph_replays": 3 + GRAPH_B + 2}
+    assert eager[3] == graphed[3] == cfg.max_num_alignments * (n - 1)
