@@ -3,8 +3,10 @@
 A cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a
 configuration, ``slambench/configs/<config>.json``, and a traffic mix,
 ``slambench/traffic/<traffic>.json``; a per-layer metric is read by
-``slambench/metrics/<name>.py``.  Nothing here names a cell, a
-configuration, a mix or a metric: a cell is added with files and entries.
+``slambench/metrics/<name>.py``; a configuration may name its odometry
+reference, ``slambench/reference/<name>.py`` (``correct.reference_run``).
+Nothing here names a cell, a configuration, a mix, a reference or a
+metric: a cell is added with files and entries.
 
 A run: the scans are raycast on the card from the seed; the program is
 built and driven through the mix's set-up frames; the measured window hands
@@ -13,11 +15,14 @@ takes it) or an open one (each scan at its due time); the window ends in
 ``torch.cuda.synchronize()`` after the program's ``finish()``.  Then the
 plain reference (``slambench/reference``) recomputes the run from the
 scans, and the last line of standard output is the result.
+
+The per-layer readers get the program's counters and its own spans and
+counts (``pylidar_slam_tpu_torch/utils/timer.py``) over the window, read at
+its start, where the profiler stops and at its end (``layer_record``).
 """
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import math
 import queue
@@ -47,7 +52,9 @@ def log(msg: str) -> None:
 
 def load_cell(root: Path, workload: str) -> dict:
     """The workload's entry, its configuration and traffic files, and the
-    metrics ``BENCHMARK.json`` asks of it."""
+    metrics ``BENCHMARK.json`` asks of it, and the configuration's odometry
+    reference (``correct.reference_run``): one that is not there stops the
+    run here, before any scan is made."""
     spec = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
@@ -55,12 +62,13 @@ def load_cell(root: Path, workload: str) -> dict:
     cell = cells[workload]
     configs = {c["name"]: c for c in spec["configs"]}
     config = json.loads((root / configs[cell["config"]]["file"]).read_text())
+    reference = correct_mod.reference_run(config, root)
     traffic = load_traffic(root, cell["traffic"])
 
     def applies(metric):
         return "workloads" not in metric or workload in metric["workloads"]
 
-    return {"cell": cell, "config": config, "traffic": traffic,
+    return {"cell": cell, "config": config, "traffic": traffic, "reference": reference,
             "end_to_end": [m for m in spec["end_to_end"] if applies(m)],
             "per_layer": [m for m in spec["per_layer"] if applies(m)]}
 
@@ -78,10 +86,7 @@ def load_traffic(root: Path, name: str, seen: tuple = ()) -> dict:
 
 def load_reader(root: Path, name: str):
     path = root / "slambench" / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"slambench_metric_{name}", path)
-    module = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(module)
-    return module.read
+    return correct_mod.load_module(path, f"slambench_metric_{name}").read
 
 
 def projector_of(sensor: dict):
@@ -127,7 +132,11 @@ class OdometryDriver:
         self.odom.finish()
 
     def counters(self) -> dict:
-        return {"dispatch_s": self.odom.pipe_stats["dispatch_s"],
+        """The odometry's own counters, and every span and count of the
+        program's registry (``span.<name>.s``, ``.self_s``, ``.n``,
+        ``count.<name>``)."""
+        from pylidar_slam_tpu_torch.utils import timer
+        return {**timer.snapshot(), "dispatch_s": self.odom.pipe_stats["dispatch_s"],
                 "flushes": self.odom.pipe_stats["flushes"]}
 
     def outputs(self) -> dict:
@@ -346,18 +355,20 @@ def end_to_end(window: dict, setup_s: float) -> dict:
 
 
 def layer_record(cell: dict, window: dict, driver) -> dict:
-    """What the per-layer readers read: the program's counters and the
-    harness's own spans over the window, and the reduction of its traced
-    part.  In a traced run the counters and spans are taken over the part
-    of the window after the profiler closed (the profiler slows the host),
-    or over the whole window where the trace covered it."""
+    """What the per-layer readers read: the program's counters, spans and
+    counts over the window (``driver.counters()``), and the reduction of its
+    traced part.  In a traced run the counters and spans are taken over the
+    part of the window after the profiler closed (the profiler slows the
+    host), or over the whole window where the trace covered it.  A counter
+    or span first used inside that part counts from 0."""
+    from pylidar_slam_tpu_torch.utils import timer
     tr = window["traced"]
     c0, c1 = window["counters0"], driver.counters()
     frames, first, seconds = window["frames"], 0, window["t1"] - window["t0"]
     if tr is not None and tr["frames"] < window["frames"]:
         c0, first = tr["counters"], tr["frames"]
         frames, seconds = window["frames"] - first, window["t1"] - tr["t"]
-    counters = {k: c1[k] - c0[k] for k in c0}
+    counters = timer.delta(c0, c1)
     if "step_s" in window:
         counters["step_call_s"] = float(sum(window["step_s"][first:]))
         counters["step_calls"] = len(window["step_s"][first:])
@@ -436,7 +447,8 @@ def run(args, t_start: float, root: Path, allow_cpu: bool = False,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    checks = correct_mod.check(config, clouds, frames_total, outputs, device, args.seed)
+    checks = correct_mod.check(config, clouds, frames_total, outputs, device, args.seed,
+                               cell["reference"])
     is_correct = all(c["value"] <= c["limit"] for c in checks.values())
     metrics = {}
     if args.trace:
@@ -460,7 +472,8 @@ def run(args, t_start: float, root: Path, allow_cpu: bool = False,
         result["breakdown"] = breakdown(record["trace"])
     if control:
         result["control"] = correct_mod.numbers(config, clouds, frames_total, outputs, device,
-                                                args.seed, control=True)
+                                                args.seed, control=True,
+                                                reference=cell["reference"])
     result["checks"] = checks
     found = forbidden_modules()
     if found:

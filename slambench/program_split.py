@@ -13,16 +13,17 @@ counts of ``pylidar_slam_tpu_torch/utils/timer.py``:
   closure's event and its match wait per event (``lc.events``) and the
   backend's optimization per optimization (``backend.optimizations``);
   ``setup_s``: each span's seconds before the window; ``harness``: the
-  harness's own counters over that part (``dispatch_s``, ...), which a
-  program without the spans has too.
+  harness's other counters over that part (``dispatch_s``, ...).
 * in a traced run, ``idle``: the traced window's idle seconds by the
   outermost and the innermost ``pls.`` span open on the pipeline thread at
   each gap's middle, over every gap (the result line's ``breakdown`` keeps
   the ten longest, labelled by the harness's spans).  Spans of other
   threads (the prep threads) never label a gap.
 
-Nothing of this is a metric of the benchmark: it reads the harness's own
-window boundaries by wrapping them in this process.
+The spans and counts are the harness's record, which the per-layer
+readers read (``span.<name>.s``, ...); this wraps the harness's
+``layer_record`` and ``trace.reduce_events`` in this process to print them
+split by stage.
 """
 import time
 
@@ -106,29 +107,15 @@ def main(argv=None) -> int:
     p.add_argument("--trace", type=int, default=1, choices=(0, 1))
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
-    from pylidar_slam_tpu_torch.utils import timer
     from slambench import harness, trace
-    snapshot = getattr(timer, "snapshot", dict)  # a program without the registry: no spans
-    marks, found = {}, {}
-    start, stop_trace, layer_record = trace.Tracer.start, harness.stop_trace, harness.layer_record
-    reduce_events = trace.reduce_events
-
-    def start_and_mark(tracer):
-        marks["start"] = snapshot()
-        return start(tracer)
-
-    def stop_and_mark(*a):
-        out = stop_trace(*a)
-        marks["stop"] = snapshot()
-        return out
+    found = {}
+    layer_record, reduce_events = harness.layer_record, trace.reduce_events
 
     def record_and_split(cell, window, driver):
         record = layer_record(cell, window, driver)
-        tr = window["traced"]
-        base = marks["stop"] if tr is not None and tr["frames"] < window["frames"] \
-            else marks["start"]
-        found.update(stage_split(marks["start"], base, snapshot(), record["window"]["frames"]))
-        found["harness"] = record["counters"]
+        spans = {k: v for k, v in record["counters"].items() if k.startswith(("span.", "count."))}
+        found.update(stage_split(window["counters0"], {}, spans, record["window"]["frames"]))
+        found["harness"] = {k: v for k, v in record["counters"].items() if k not in spans}
         return record
 
     def reduce_and_split(events):
@@ -136,7 +123,6 @@ def main(argv=None) -> int:
         found["idle"] = idle_by_span(events)
         return reduce_events(events)
 
-    trace.Tracer.start, harness.stop_trace = start_and_mark, stop_and_mark
     harness.layer_record, trace.reduce_events = record_and_split, reduce_and_split
     rc = harness.run(argparse.Namespace(workload=args.workload, seed=args.seed,
                                         seconds=args.seconds, trace=args.trace), T_START, ROOT)
