@@ -20,6 +20,14 @@ the loop's condition as a device flag, so a frozen trip costs no NN pass.
 With ``shard_points`` = S ranks, each rank registers a block of the targets
 and every GN trip all-reduces the 6x6 normal equations (gloo, which the
 card's ranks share, stages each one through the host).
+
+A frame's step opens the spans ``odometry.dequant``, ``odometry.register``
+and ``odometry.map_update`` (the aggregated map's names) and counts its
+work in ``utils.timer``: ``surfel.nn_calls``, the exact searches enqueued
+(host); on the device, ``surfel.nn_active_calls``, the searches whose flag
+held, ``surfel.nn_pairs``, valid queries x valid map points over those, and
+``surfel.knn_dropped``, the map points that the hash grid built at an
+insert left out of a full bucket.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from pylidar_slam_tpu_torch.slam.odometry.aggregated_map import (
     _gather_image, dequant_upload, rasterize_encoded, select_state)
 from pylidar_slam_tpu_torch.slam.odometry.local_map import LocalMapConfig
 from pylidar_slam_tpu_torch.utils import assert_debug
+from pylidar_slam_tpu_torch.utils.timer import count, device_counts, span
 
 
 @dataclass
@@ -208,6 +217,10 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
         assert_debug(m_targets % n_shard == 0,
                      f"target_samples {m_targets} must divide over {n_shard} ranks")
         block = slice(shard * m_targets // n_shard, (shard + 1) * m_targets // n_shard)
+    # the work a frame counts on the device, in one add: B2's searches where
+    # it runs them, and what the hash grid of an insert left out
+    counted = (() if use_hash else ("surfel.nn_active_calls", "surfel.nn_pairs")) + \
+        (("surfel.knn_dropped",) if use_hash or normals_mode == "knn" else ())
 
     def build_grid(points: torch.Tensor, valid: torch.Tensor):
         """Bucket grid + dense packing of the map, built once per insert."""
@@ -231,6 +244,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
             zero = torch.zeros_like(moved)
             return (torch.where(found, state.points[idx], zero),
                     torch.where(found, state.normals[idx], zero), sq)
+        count("surfel.nn_calls")
         idx, sq = nn_argmin(moved, state.points, state.valid, active=flag)
         idx = idx.to(torch.int64)
         return state.points[idx], state.normals[idx], sq
@@ -239,7 +253,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
                  t_valid: torch.Tensor, t_init: torch.Tensor):
         """Solves ta = anchor_from_new; targets arrive in the new frame and
         t_init is the anchor-frame initialization.  Returns (ta, iterations
-        run, loss, matches) as device tensors."""
+        run, loss, matches, searches run) as device tensors."""
         dev, dt = targets.device, targets.dtype
         t = t_init
         ref = torch.zeros_like(targets)
@@ -249,6 +263,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
         it = torch.zeros((), dtype=torch.int32, device=dev)
         loss = torch.zeros((), dtype=dt, device=dev)
         matches = torch.zeros((), dtype=torch.int32, device=dev)
+        reused = torch.zeros((), dtype=torch.int32, device=dev)  # trips that held pairs
         for trip in range(max_num_alignments):
             # The JAX loop's condition; once false every carry stays frozen.
             # While it holds, the JAX iteration counter equals `trip`.
@@ -272,6 +287,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
                 sq_reuse = torch.sum(e * e, dim=-1)
                 if do_research is False:
                     ref_k, nrm_k, sq_k, t_assoc_k = ref, nrm, sq_reuse, t_assoc
+                    reused = reused + active.to(torch.int32)
                 else:
                     f_ref, f_nrm, f_sq = research(state, moved,
                                                   active & do_research)
@@ -279,6 +295,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
                     nrm_k = torch.where(do_research, f_nrm, nrm)
                     sq_k = torch.where(do_research, f_sq, sq_reuse)
                     t_assoc_k = torch.where(do_research, t, t_assoc)
+                    reused = reused + (active & ~do_research).to(torch.int32)
 
             ok = t_valid & (sq_k < max_nd * max_nd) & \
                 (torch.amax(torch.abs(nrm_k), dim=-1) > 0)
@@ -306,13 +323,15 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
             # every rank froze at the same trip: the sum of the ranks' counts
             # is that trip's count over all targets
             dist.all_reduce(matches, group=group)
-        return t, it, loss, matches
+        return t, it, loss, matches, it - reused
 
     def insert(state: SurfelMapState, points: torch.Tensor, mask: torch.Tensor,
-               ta: torch.Tensor) -> SurfelMapState:
+               ta: torch.Tensor):
         """Writes the new frame's S grid-sampled surfels into the ring slot,
         in the anchor frame (`ta` = anchor_from_new); the rest of the map is
-        untouched, and the packed grid is rebuilt."""
+        untouched, and the packed grid is rebuilt.  Returns (state, map
+        points the grid left out of a full bucket, or None where no grid is
+        built)."""
         idx_img, hit = rasterize_encoded(points, proj, mask)
         vmap = _gather_image(points, idx_img, hit, h, w)
         vpix = vmap.reshape(-1, 3)
@@ -330,8 +349,9 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
         if normals_mode == "knn":
             # Cross-frame normals: a plane fit over the nearest points of the
             # accumulated map, the new frame included.
-            knn_grid = grid if use_hash else build_grid(new_points, pre_valid)
-            idxk, sqk = hash_grid_knn(sel_a, new_points, knn_grid, hash_voxel,
+            if grid is None:
+                grid = build_grid(new_points, pre_valid)
+            idxk, sqk = hash_grid_knn(sel_a, new_points, grid, hash_voxel,
                                       hash_buckets, hash_cap, max_nd,
                                       int(map_cfg.num_neighbors_normals))
             nb = new_points[idxk.to(torch.int64)]
@@ -348,7 +368,8 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
             write_slot=(slot + 1) % k, anchor_from_cur=ta)
         if use_hash:
             out = out._replace(table_pts=grid[0], table_ids=grid[1])
-        return out
+        dropped = None if grid is None else pre_valid.sum() - (grid[1] >= 0).sum()
+        return out, dropped
 
     def reanchor(st: SurfelMapState) -> SurfelMapState:
         """Re-expresses the map in the current frame."""
@@ -368,42 +389,56 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
              points: torch.Tensor, mask: torch.Tensor, init_rpose: torch.Tensor):
         """Full frame: register + thresholded insert + re-anchor.  Returns
         (state', delta', rpose, pose_params, (loss, iters, matches, inserted))."""
-        points, mask, _ = dequant_upload(points, mask, proj, upload_quantization)
-        targets, _, t_valid = _grid_sample_fixed(
-            points, mask, float(map_cfg.target_voxel_size), m_targets)
-        if group is not None:
-            targets, t_valid = targets[block], t_valid[block]
+        with span("odometry.dequant"):
+            points, mask, _ = dequant_upload(points, mask, proj, upload_quantization)
+        with span("odometry.register"):
+            targets, _, t_valid = _grid_sample_fixed(
+                points, mask, float(map_cfg.target_voxel_size), m_targets)
+            if group is not None:
+                targets, t_valid = targets[block], t_valid[block]
 
-        # Registration runs in the anchor frame; init and result convert
-        # through anchor_from_cur (cur = the previous frame).
-        ta_init = state.anchor_from_cur @ init_rpose
-        ta, it, loss, matches = register(state, targets, t_valid, ta_init)
-        inv_anchor = se3.inverse_pose_matrix(state.anchor_from_cur)
-        t_final = se3.normalize_pose_matrix((inv_anchor @ ta)[None])[0]
+            # Registration runs in the anchor frame; init and result convert
+            # through anchor_from_cur (cur = the previous frame).
+            ta_init = state.anchor_from_cur @ init_rpose
+            ta, it, loss, matches, searched = register(state, targets, t_valid, ta_init)
+            work = [] if use_hash else [
+                searched.to(torch.int64),
+                searched * t_valid.sum() * state.valid.sum()]  # valid query x map pairs
 
-        new_delta = delta_since_update @ t_final
-        d_params = se3.from_pose_matrix(new_delta[None])[0]
-        do_insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
-            (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
+        with span("odometry.map_update"):
+            inv_anchor = se3.inverse_pose_matrix(state.anchor_from_cur)
+            t_final = se3.normalize_pose_matrix((inv_anchor @ ta)[None])[0]
 
-        # Both branches of each JAX lax.cond, selected on the device.  A
-        # non-insert frame only moves the anchor pose.
-        state = select_state(do_insert, insert(state, points, mask, ta),
-                              state._replace(anchor_from_cur=ta))
-        far = torch.linalg.vector_norm(state.anchor_from_cur[:3, 3]) > reanchor_dist
-        state = select_state(far, reanchor(state), state)
+            new_delta = delta_since_update @ t_final
+            d_params = se3.from_pose_matrix(new_delta[None])[0]
+            do_insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
+                (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
 
-        eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
-        delta_out = torch.where(do_insert, eye, new_delta)
-        pose_params = se3.from_pose_matrix(t_final[None])[0]
+            # Both branches of each JAX lax.cond, selected on the device.  A
+            # non-insert frame only moves the anchor pose.
+            inserted, dropped = insert(state, points, mask, ta)
+            if dropped is not None:
+                work.append(dropped * do_insert)
+            state = select_state(do_insert, inserted, state._replace(anchor_from_cur=ta))
+            far = torch.linalg.vector_norm(state.anchor_from_cur[:3, 3]) > reanchor_dist
+            state = select_state(far, reanchor(state), state)
+
+            eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
+            delta_out = torch.where(do_insert, eye, new_delta)
+            pose_params = se3.from_pose_matrix(t_final[None])[0]
+        if counted:
+            device_counts(counted, torch.stack(work))
         return state, delta_out, t_final, pose_params, (loss, it, matches,
                                                         do_insert)
 
     def first_frame(state: SurfelMapState, points: torch.Tensor,
                     mask: torch.Tensor) -> SurfelMapState:
         points, mask, _ = dequant_upload(points, mask, proj, upload_quantization)
-        return insert(state, points, mask,
-                      torch.eye(4, dtype=torch.float32, device=points.device))
+        state, dropped = insert(state, points, mask,
+                                torch.eye(4, dtype=torch.float32, device=points.device))
+        if dropped is not None:
+            device_counts(("surfel.knn_dropped",), dropped[None])
+        return state
 
     def batch_step(state: SurfelMapState, delta_since_update: torch.Tensor,
                    last_rpose: torch.Tensor,

@@ -17,6 +17,11 @@ One registry per process, in memory, safe to use from any thread:
   profiler running (``record_function`` costs ~9 us a use even then on an
   H100 machine's host; a span ~1.6 us).
 * ``count(name, n=1)`` -- a work count.
+* ``device_counts(names, values)`` -- work counts that a device tensor
+  holds, one element a name, added up where they live, with no host sync:
+  one in-place add a call, a kernel that a captured CUDA graph replays.
+  The sums are kept per names and device and read at ``snapshot()``, one
+  small read each; a registry with none reads nothing from a device.
 * ``snapshot()`` -- every span and count as one flat dict of numbers:
   ``span.<name>.s``, ``span.<name>.self_s``, ``span.<name>.n``,
   ``count.<name>``; ``delta(before, after)`` is the work between two.
@@ -30,7 +35,7 @@ import contextlib
 import threading
 from pathlib import Path
 from time import perf_counter
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +45,8 @@ _profiling = torch.autograd._profiler_enabled
 _lock = threading.Lock()
 _threads: list = []  # every thread's _Thread, in the order they first used one
 _local = threading.local()
+# (names, device) -> the float64 sums of those names on that device
+_device_counts: Dict[Tuple[Tuple[str, ...], torch.device], torch.Tensor] = {}
 
 
 class _Thread:
@@ -123,10 +130,29 @@ def count(name: str, n: float = 1) -> None:
     counts[name] = counts.get(name, 0) + n
 
 
+def device_counts(names: Sequence[str], values: torch.Tensor) -> None:
+    """Adds ``values[i]`` to the count ``names[i]``, on the device of
+    `values` (one element a name).  Each names and device keep a sum of
+    their own, made at their first add, which may not fall inside a
+    CUDA-graph capture: each replay would zero it again."""
+    key = (tuple(names), values.device)
+    acc = _device_counts.get(key)
+    if acc is None:
+        if values.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"device counts {key[0]} first used inside a CUDA-graph "
+                               f"capture; add to them once before capturing")
+        with _lock:
+            acc = _device_counts.setdefault(
+                key, torch.zeros((len(key[0]),), dtype=torch.float64, device=values.device))
+    acc.add_(values.reshape(-1))
+
+
 def snapshot() -> Dict[str, float]:
-    """Every thread's spans and counts, summed by name."""
+    """Every thread's spans and counts, summed by name; the device counts
+    are read here, one small read each."""
     with _lock:
         threads = list(_threads)
+        device = list(_device_counts.items())
     spans: Dict[str, list] = {}
     counts: Dict[str, float] = {}
     for th in threads:
@@ -135,6 +161,9 @@ def snapshot() -> Dict[str, float]:
             for k in range(3):
                 tot[k] += rec[k]
         for name, n in list(th.counts.items()):
+            counts[name] = counts.get(name, 0) + n
+    for (names, _), acc in device:
+        for name, n in zip(names, acc.tolist()):
             counts[name] = counts.get(name, 0) + n
     out = {}
     for name, (s, self_s, n) in spans.items():
