@@ -10,12 +10,20 @@ For (M, 3) queries and (V, 3) model points with a (V,) validity mask: the
 index (int32) and squared distance of each query's nearest valid model
 point.  Invalid rows never win, the lowest index wins ties, and a map with
 no valid row gives index 0 and +inf.
+
+``nn_argmin.launches`` counts the kernel's runs.  Inside ``capture()`` (a
+CUDA graph's capture on the calling thread) a launch is recorded, not run:
+it is counted on the scope's object, and each replay of the graph adds
+that count with ``add_launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
+import threading
+import types
 from typing import Optional, Tuple
 
 import torch
@@ -69,6 +77,27 @@ def _scratch_shape(m: int, v: int, device_index: int) -> Tuple[int, int]:
     lib = _library()
     with torch.cuda.device(device_index):
         return lib.nn_argmin_splits(m, v), lib.nn_argmin_padded_rows(v)
+
+
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def capture():
+    """The scope of a CUDA-graph capture on this thread: the launches in it
+    are counted in the yielded object's ``launches``, not in
+    ``nn_argmin.launches``."""
+    _capturing.scope = scope = types.SimpleNamespace(launches=0)
+    try:
+        yield scope
+    finally:
+        _capturing.scope = None
+
+
+def add_launches(n: int) -> None:
+    """Counts `n` launches a graph replay ran."""
+    with LAUNCH_LOCK:  # job threads launch concurrently
+        nn_argmin.launches += n
 
 
 def build() -> None:
@@ -139,8 +168,11 @@ def nn_argmin(queries: torch.Tensor, model: torch.Tensor,
         sq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nn_argmin launch failed with cudaError_t {err}")
-    with LAUNCH_LOCK:  # job threads launch concurrently
-        nn_argmin.launches += 1
+    scope = getattr(_capturing, "scope", None)
+    if scope is not None:
+        scope.launches += 1
+    else:
+        add_launches(1)
     return idx, sq
 
 

@@ -18,10 +18,11 @@ memory behind a CUDA event and
 ``drain_batch_results`` hands over the batches whose copy has landed.
 
 On a CUDA device, a map whose step maker declares its step graph-safe (the
-aggregated map) has its batched frames stepped by replays of one CUDA graph
-of that step (``_FrameGraph``) from the second batch after ``init()`` on:
-the same kernels in the same order, enqueued by one call a frame instead
-of ~2,000.
+aggregated map; the surfel map with no process group) has its batched
+frames stepped by replays of one CUDA graph of that step (``_FrameGraph``)
+from the second batch after ``init()`` on: the same kernels in the same
+order, enqueued by one call a frame instead of ~2,000 (~3,800 for the
+surfel map).
 """
 from __future__ import annotations
 
@@ -36,12 +37,13 @@ import torch.distributed as dist
 from pylidar_slam_tpu_torch.config import MISSING, dataclass_from_dict
 from pylidar_slam_tpu_torch.ops import bev, optimization, projection, se3
 from pylidar_slam_tpu_torch.ops.kernels import assoc_gn as b1
+from pylidar_slam_tpu_torch.ops.kernels import nn_argmin as b2
 from pylidar_slam_tpu_torch.slam.odometry import aggregated_map as am
 from pylidar_slam_tpu_torch.slam.odometry import local_map as lm
 from pylidar_slam_tpu_torch.slam.odometry import surfel_map as sm
 from pylidar_slam_tpu_torch.slam.odometry import voxel_map as vm
 from pylidar_slam_tpu_torch.utils import assert_debug
-from pylidar_slam_tpu_torch.utils.timer import count, span
+from pylidar_slam_tpu_torch.utils.timer import add_counts, count, recorded_counts, span
 from pylidar_slam_tpu_torch.utils.transfer import copy_to_host_async
 
 # The continuous-time pose surfaces: sweep fraction of each reported pose.
@@ -269,7 +271,12 @@ class _FrameGraph:
     last insert and the last relative pose (the next frame's prior).  The
     graph's last nodes write the step's state and pose back into the slots,
     so replay i+1 reads what replay i wrote; its pose params land in
-    ``params``, which each replay copies out."""
+    ``params``, which each replay copies out.
+
+    What the step counts on the host (B1's and B2's launches, the
+    ``utils.timer`` counts) is recorded at the capture, which enqueues the
+    frame and runs nothing, and added by each replay; the device counts
+    are kernels of the graph."""
 
     def __init__(self, step, state, delta, rpose, points, mask):
         self.step = step
@@ -282,6 +289,8 @@ class _FrameGraph:
         # address, so it lives as long as the graph
         self.counter = None
         self.launches = 0  # B1 launches a replay runs
+        self.searches = 0  # B2 launches a replay runs
+        self.counts: dict = {}  # timer counts a replay makes
 
     @staticmethod
     def runs_on(device: torch.device) -> bool:
@@ -302,6 +311,26 @@ class _FrameGraph:
         self.load(state, delta, rpose)
         return params
 
+    def _record(self, graph) -> torch.Tensor:
+        """Enqueues one frame into `graph`'s capture, with what it counts on
+        the host recorded for the replays, and returns its params."""
+        with b1.capture(self.points.device) as ours, b2.capture() as searches, \
+                recorded_counts() as counts:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                params = self._frame()
+            finally:
+                graph.capture_end()
+        self.counter, self.launches = ours.counter, ours.launches
+        self.searches, self.counts = searches.launches, counts
+        return params
+
+    def _add_counts(self):
+        """Counts what a replay ran."""
+        b1.add_launches(self.launches)
+        b2.add_launches(self.searches)
+        add_counts(self.counts)
+
     def capture(self, points, mask, out):
         """Steps one frame eagerly on a stream of the graph's own, which
         warms what that stream has not run (cuBLAS's workspace, the
@@ -315,22 +344,16 @@ class _FrameGraph:
             self.mask.copy_(mask)
             out.copy_(self._frame())
             graph = torch.cuda.CUDAGraph()
-            with b1.capture(points.device) as recorded:
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    params = self._frame()
-                finally:
-                    graph.capture_end()
+            params = self._record(graph)
         main.wait_stream(side)
         self.graph, self.params = graph, params
-        self.counter, self.launches = recorded.counter, recorded.launches
 
     def replay(self, points, mask, out):
         self.points.copy_(points)
         self.mask.copy_(mask)
         self.graph.replay()
         out.copy_(self.params)
-        b1.add_launches(self.launches)
+        self._add_counts()
 
 
 def _shard_group(n_shard: int):

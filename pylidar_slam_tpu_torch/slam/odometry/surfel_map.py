@@ -19,7 +19,9 @@ the loop's condition as a device flag, so a frozen trip costs no NN pass.
 
 With ``shard_points`` = S ranks, each rank registers a block of the targets
 and every GN trip all-reduces the 6x6 normal equations (gloo, which the
-card's ranks share, stages each one through the host).
+card's ranks share, stages each one through the host).  Without a process
+group the step is graph-safe: ``ICPFrameToModel`` replays its batched
+frames on the card as one CUDA graph a frame.
 
 A frame's step opens the spans ``odometry.dequant``, ``odometry.register``
 and ``odometry.map_update`` (the aggregated map's names) and counts its
@@ -459,4 +461,7 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
         stacked = tuple(torch.stack(d) for d in zip(*diags))
         return state, delta, rpose, torch.stack(params), stacked
 
+    # Fixed shapes and no host read: the odometry may capture the step in a
+    # CUDA graph, unless it is sharded (its all-reduces pass the host).
+    step.graph_safe = group is None
     return step, first_frame, batch_step

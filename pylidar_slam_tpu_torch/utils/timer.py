@@ -16,7 +16,10 @@ One registry per process, in memory, safe to use from any thread:
   mirror on the device's timeline, and it is never entered with no
   profiler running (``record_function`` costs ~9 us a use even then on an
   H100 machine's host; a span ~1.6 us).
-* ``count(name, n=1)`` -- a work count.
+* ``count(name, n=1)`` -- a work count.  Inside ``recorded_counts()`` a
+  thread's counts go to the dict that scope yields, not to the registry:
+  the counts of a frame that a CUDA-graph capture enqueues and does not
+  run, which each replay adds with ``add_counts``.
 * ``device_counts(names, values)`` -- work counts that a device tensor
   holds, one element a name, added up where they live, with no host sync:
   one in-place add a call, a kernel that a captured CUDA graph replays.
@@ -67,6 +70,7 @@ def _thread() -> _Thread:
         return _local.state
     except AttributeError:
         _local.state = _Thread()
+        _local.counts = _local.state.counts  # where count() adds
         return _local.state
 
 
@@ -124,10 +128,28 @@ class span:
 
 def count(name: str, n: float = 1) -> None:
     try:
-        counts = _local.state.counts
+        counts = _local.counts
     except AttributeError:
         counts = _thread().counts
     counts[name] = counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recorded_counts():
+    """Diverts this thread's ``count`` calls into the dict it yields, so
+    that they reach no snapshot."""
+    th = _thread()
+    _local.counts = recorded = {}
+    try:
+        yield recorded
+    finally:
+        _local.counts = th.counts
+
+
+def add_counts(counts: Dict[str, float]) -> None:
+    """Adds each ``counts[name]`` to the count `name`."""
+    for name, n in counts.items():
+        count(name, n)
 
 
 def device_counts(names: Sequence[str], values: torch.Tensor) -> None:

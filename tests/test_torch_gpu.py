@@ -309,14 +309,14 @@ def _graph_odometry(proj, upload, cuda, graphed=True):
     return odom
 
 
-def _run_graph_frames(odom, frames):
+def _run_graph_frames(odom, frames, names=GRAPH_COUNTS):
     from pylidar_slam_tpu_torch.utils import timer
     before, launches = timer.snapshot(), b1.assoc_gn.launches
     for f in frames:
         odom.process_next_frame(dict(f))
     params = odom.fetch_params_log()
     after = timer.snapshot()
-    counts = {k: after.get(k, 0) - before.get(k, 0) for k in GRAPH_COUNTS}
+    counts = {k: after.get(k, 0) - before.get(k, 0) for k in names}
     return params, [t.clone() for t in odom._map_state], counts, b1.assoc_gn.launches - launches
 
 
@@ -340,6 +340,56 @@ def test_graphed_odometry_equals_eager(cuda, upload):
     assert graphed[2] == {"count.odometry.graph_captures": 2,
                           "count.odometry.graph_replays": 3 + 3 + GRAPH_B + 2}
     assert eager[3] == graphed[3] == 8 * (GRAPH_N - 1)
+
+
+SURFEL_COUNTS = GRAPH_COUNTS + ("count.surfel.nn_calls", "count.surfel.nn_active_calls",
+                                "count.surfel.nn_pairs", "count.surfel.knn_dropped")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("local_map", [{"nn_backend": "exact", "normals_mode": "knn"},
+                                       {"nn_backend": "hash", "normals_mode": "image"}],
+                         ids=["exact-knn", "hash-image"])
+def test_graphed_surfel_odometry_equals_eager(cuda, local_map):
+    """The surfel champion batched by 4 on float32 uploads, exact search on
+    B2 with k-NN map normals or the hash grid with the scan's normals:
+    replays against eager steps over four batches and a remainder, with a
+    vertex-map batch as a second key.  Poses, the seven state tensors and
+    the device counts equal to the bit; the host's ``surfel.nn_calls`` and
+    B2's launches are 20 a frame stepped either way (the hash grid
+    launches none), since each replay adds what the capture recorded."""
+    import dataclasses
+    from pylidar_slam_tpu_torch.eval import acceptance
+    from pylidar_slam_tpu_torch.slam.odometry.icp_odometry import ICPFrameToModel
+    proj, frames = _graph_frames("f32")
+    cfg = acceptance.champion_configs()["surfel"]
+    cfg = dataclasses.replace(cfg, local_map=dict(cfg.local_map, **local_map),
+                              batch_size=GRAPH_B, device=str(cuda),
+                              num_points_padded=6 * 16384)
+    runs = []
+    for graphed in (False, True):
+        odom = ICPFrameToModel(cfg, projector=proj)
+        assert odom._graph_safe
+        if not graphed:
+            odom._step_graphed = lambda pts, msks: None
+        searches = b2.nn_argmin.launches
+        run = _run_graph_frames(odom, frames, SURFEL_COUNTS)
+        runs.append(run + (b2.nn_argmin.launches - searches,))
+    eager, graphed = runs
+    assert np.array_equal(graphed[0], eager[0])
+    assert len(graphed[1]) == 7
+    for a, b in zip(graphed[1], eager[1]):
+        assert torch.equal(a, b)
+    for name in SURFEL_COUNTS[2:]:
+        assert graphed[2][name] == eager[2][name], name
+    assert graphed[2]["count.odometry.graph_captures"] == 2
+    assert graphed[2]["count.odometry.graph_replays"] == 3 + 3 + GRAPH_B + 2
+    trips = 20 * (GRAPH_N - 1) if local_map["nn_backend"] == "exact" else 0
+    assert graphed[2]["count.surfel.nn_calls"] == trips
+    assert graphed[4] == eager[4] == trips
+    assert graphed[3] == eager[3] == 0
+    if trips:
+        assert 0 < graphed[2]["count.surfel.nn_active_calls"] < trips
 
 
 @pytest.mark.gpu

@@ -93,6 +93,28 @@ def test_nesting_self_time_and_counts():
     assert 0 < d["span.t.outer.self_s"] < d["span.t.outer.s"]
 
 
+def test_recorded_counts_reach_no_snapshot():
+    """Inside ``recorded_counts`` the thread's counts go to the yielded
+    dict, another thread's to the registry; ``add_counts`` adds them."""
+    before = timer.snapshot()
+    timer.count("t.rec.items")
+    with timer.recorded_counts() as recorded:
+        timer.count("t.rec.items", 2)
+        timer.count("t.rec.other")
+        other = threading.Thread(target=timer.count, args=("t.rec.items", 7))
+        other.start()
+        other.join(timeout=60)
+        assert not other.is_alive()
+        assert _since(before)["count.t.rec.items"] == 1 + 7
+    assert recorded == {"t.rec.items": 2, "t.rec.other": 1}
+    timer.count("t.rec.items")
+    timer.add_counts(recorded)
+    timer.add_counts(recorded)
+    d = _since(before)
+    assert d["count.t.rec.items"] == 1 + 7 + 1 + 2 * 2
+    assert d["count.t.rec.other"] == 2
+
+
 def test_two_threads_at_once():
     """Spans nest per thread, and no update is lost between threads (a
     short switch interval interleaves them)."""
