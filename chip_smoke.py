@@ -552,13 +552,13 @@ def run_sequence(cfg, loader, frames, dev, log_iters=None):
         cfg = acceptance.champion_configs()[cfg]
     odom = ICPFrameToModel(cfg, projector=loader.projector(), device=dev)
     if log_iters is not None:
-        step = odom._step
+        step = odom._map.step
 
         def counted(*args):
             out = step(*args)
             log_iters.append(out[4][1])
             return out
-        odom._step = counted
+        odom._map = odom._map._replace(step=counted)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     last = None
@@ -685,13 +685,14 @@ def _step_call(odom, frame):
     (the frame is read and uploaded here), and a function of the step's
     output giving its pose params."""
     prior = odom.last_rpose_device
-    if odom._mode == "projective_local_map":
+    step = odom._map.step
+    if not odom._map.uploads:  # the projective map steps vertex maps
         vmap = odom._read_input(dict(frame))
-        return (lambda: odom._step(odom._map_state, odom._delta_since_update, vmap, prior),
+        return (lambda: step(odom._map_state, odom._delta_since_update, vmap, prior),
                 lambda out: out[2].pose_params)
     points, mask = odom._read_points(dict(frame))
-    return (lambda: odom._step(odom._map_state, odom._delta_since_update, points, mask,
-                               prior), lambda out: out[3])
+    return (lambda: step(odom._map_state, odom._delta_since_update, points, mask,
+                         prior), lambda out: out[3])
 
 
 def sync_check(name, odom, frame) -> None:
@@ -1305,8 +1306,8 @@ def batch_sync_check(name, odom, frames) -> None:
     replays = timer.snapshot().get("count.odometry.graph_replays", 0)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = odom._batch_step(odom._map_state, odom._delta_since_update,
-                               odom.last_rpose_device, pts, msks)
+        out = odom._map.batch_step(odom._map_state, odom._delta_since_update,
+                                   odom.last_rpose_device, pts, msks)
         replayed = odom._step_graphed(pts, msks)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1650,7 +1651,7 @@ def b2_inputs(odom, next_frame):
     """The surfel map after the main path, and the next frame's grid-sampled
     targets moved to their prior in the map's anchor frame -- what the
     next step's first NN pass receives."""
-    cfg = odom._surfel_cfg
+    cfg = odom._map.config
     state = odom._map_state
     points, mask, _ = am.dequant_upload(*odom._read_points(dict(next_frame)),
                                         odom.projector)

@@ -236,12 +236,12 @@ def stage_probes(odom, frames, s: Settings, device: torch.device) -> dict:
     state = _clone_state(odom._map_state)
     delta = torch.eye(4, dtype=torch.float32, device=device)
     rpose = torch.eye(4, dtype=torch.float32, device=device)
-    state, delta, rpose, _, _ = odom._batch_step(state, delta, rpose, pts, msks)  # warm
+    state, delta, rpose, _, _ = odom._map.batch_step(state, delta, rpose, pts, msks)  # warm
     synchronize(device)
     n_chain = 4
     t0 = time.perf_counter()
     for _ in range(n_chain):
-        state, delta, rpose, _, _ = odom._batch_step(state, delta, rpose, pts, msks)
+        state, delta, rpose, _, _ = odom._map.batch_step(state, delta, rpose, pts, msks)
     synchronize(device)
     stages["device_ms_per_frame"] = round(
         (time.perf_counter() - t0) / (n_chain * len(bufs)) * 1000, 2)

@@ -27,13 +27,15 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pylidar_slam_tpu_torch.config import dataclass_from_dict
 from pylidar_slam_tpu_torch.ops import (geometry, optimization, projection,
                                         registration, se3)
 from pylidar_slam_tpu_torch.ops.kernels.assoc_gn import (
     assoc_gn, unpack, window_associate_images)
 from pylidar_slam_tpu_torch.ops.optimization import solve_normal_equations
 from pylidar_slam_tpu_torch.ops.projection import point_norm
-from pylidar_slam_tpu_torch.slam.odometry.local_map import LocalMapConfig, select_state
+from pylidar_slam_tpu_torch.slam.odometry.local_map import (
+    LocalMap, LocalMapConfig, icp_args, insert_rule, make_batch_step, select_state)
 from pylidar_slam_tpu_torch.utils.timer import span
 
 
@@ -481,10 +483,8 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
             rpose = se3.inverse_pose_matrix(state.anchor_from_cur) @ t_final
             pose_params = se3.from_pose_matrix(rpose[None])[0]
 
-            new_delta = delta_since_update @ rpose
-            d_params = se3.from_pose_matrix(new_delta[None])[0]
-            insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
-                (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
+            insert, delta_out = insert_rule(delta_since_update, rpose,
+                                            threshold_trans, threshold_rot)
 
             # Both branches of the JAX lax.cond, selected on the device.
             if elastic:
@@ -498,8 +498,6 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
                                    model_normals_kernel=model_nks, normals_fit=nrm_fit)
             state = select_state(insert, inserted,
                                  state._replace(anchor_from_cur=t_final))
-            eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
-            delta_out = torch.where(insert, eye, new_delta)
         return state, delta_out, rpose, pose_params, (loss, it, matches, insert)
 
     def first_frame(state: AggMapState, points: torch.Tensor, mask: torch.Tensor):
@@ -510,26 +508,30 @@ def make_agg_icp_frame_step(proj: projection.SphericalProjection,
         return insert_scan(state, vmap, nmap, rimg, eye, proj, max_age,
                            model_normals_kernel=model_nks, normals_fit=nrm_fit)
 
-    def batch_step(state: AggMapState, delta_since_update: torch.Tensor,
-                   last_rpose: torch.Tensor,
-                   points_batch: torch.Tensor, masks_batch: torch.Tensor):
-        """Processes B frames in order; frame i's constant-velocity prior is
-        frame i-1's estimated relative pose, chained on the device.
+    return step, first_frame, make_batch_step(step)
 
-        Returns (state', delta', last_rpose', params (B, 6), diagnostics
-        (loss, iters, matches, inserted), each (B,)).
-        """
-        params, diags = [], []
-        delta, rpose = delta_since_update, last_rpose
-        for i in range(points_batch.shape[0]):
-            state, delta, rpose, p, diag = step(state, delta, points_batch[i],
-                                                masks_batch[i], rpose)
-            params.append(p)
-            diags.append(diag)
-        stacked = tuple(torch.stack(d) for d in zip(*diags))
-        return state, delta, rpose, torch.stack(params), stacked
 
-    # Fixed shapes, no host read and no allocation outside PyTorch's
-    # allocator: the odometry may capture the step in a CUDA graph.
-    step.graph_safe = True
-    return step, first_frame, batch_step
+def aggregated_local_map(config, proj: projection.SphericalProjection, map_dict: dict,
+                         gn, alignment: dict) -> LocalMap:
+    """The aggregated map's record.  Its step has fixed shapes, reads
+    nothing back to the host and allocates only through PyTorch's
+    allocator: the odometry may capture it in a CUDA graph."""
+    cfg = dataclass_from_dict(AggregatedLocalMapConfig, map_dict)
+    step, first_frame, batch_step = make_agg_icp_frame_step(
+        proj=proj,
+        map_cfg=cfg,
+        reassoc_every=int(config.reassoc_every or 3),
+        gn_sigma_start=float(gn.sigma_start or 0.0),
+        gn_sigma_anneal_iters=int(gn.sigma_anneal_iters or 0),
+        max_dist_to_plane=float(gn.max_dist_to_plane or 0.0),
+        beta_location_consistency=float(gn.beta_location_consistency or 0.0),
+        beta_constant_velocity=float(gn.beta_constant_velocity or 0.0),
+        beta_small_velocity=float(gn.beta_small_velocity or 0.0),
+        beta_orientation_consistency=float(gn.beta_orientation_consistency or 0.0),
+        deskew=bool(alignment.get("deskew", False)),
+        elastic=bool(alignment.get("elastic", False)),
+        alignment_mode=str(alignment.get("mode", "point_to_plane_gauss_newton")),
+        **icp_args(config, gn))
+    h, w = proj.height, proj.width
+    return LocalMap(cfg, lambda device: init_agg_map(h, w, device), step, first_frame,
+                    batch_step, graph_safe=True, model_image=lambda st: st.rng)

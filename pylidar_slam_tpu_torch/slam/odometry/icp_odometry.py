@@ -1,7 +1,9 @@
 """Frame-to-Model ICP odometry (torch port of
 ``pylidar_slam_tpu.slam.odometry.icp_odometry``) over its four local maps:
 the projective ring buffer (the default), the aggregated map, the surfel
-("kdtree_local_map") map and the voxel table.
+map and the voxel table.  Each is driven through the ``local_map.LocalMap``
+record its module builds; ``MAPS`` maps a ``local_map.type`` to the
+function that builds it.
 
 The host wrapper keeps the reference's ``data_dict`` key contract
 (``init_rpose`` in, ``odometry_pose`` / ``odometry_pc`` out).  The input is
@@ -17,7 +19,7 @@ whole log at once; when a downstream stage needs them per frame
 memory behind a CUDA event and
 ``drain_batch_results`` hands over the batches whose copy has landed.
 
-On a CUDA device, a map whose step maker declares its step graph-safe (the
+On a CUDA device, a map whose record declares its step graph-safe (the
 aggregated map; the surfel map with no process group) has its batched
 frames stepped by replays of one CUDA graph of that step (``_FrameGraph``)
 from the second batch after ``init()`` on: the same kernels in the same
@@ -32,7 +34,6 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from pylidar_slam_tpu_torch.config import MISSING, dataclass_from_dict
 from pylidar_slam_tpu_torch.ops import bev, optimization, projection, se3
@@ -49,8 +50,14 @@ from pylidar_slam_tpu_torch.utils.transfer import copy_to_host_async
 # The continuous-time pose surfaces: sweep fraction of each reported pose.
 _POSE_FRACTIONS = {"mid_pose": 0.5, "end_pose": 1.0}
 POSE_TYPES = ("", "begin_pose") + tuple(_POSE_FRACTIONS)
-MAP_TYPES = ("projective_local_map", "aggregated_local_map",
-             "kdtree_local_map", "voxel_local_map")
+# local_map.type -> the function that builds the map's LocalMap record (the
+# first is the default, as in the JAX package); each calls its module's step
+# maker by the module's name for it, at the build
+MAPS = {"projective_local_map": lm.projective_local_map,
+        "aggregated_local_map": am.aggregated_local_map,
+        "kdtree_local_map": sm.kdtree_local_map,
+        "voxel_local_map": vm.voxel_local_map}
+MAP_TYPES = tuple(MAPS)
 UPLOAD_FORMATS = ("f32", "packed", "rimg", "rimg16", "rimg8", "rimg12")
 
 
@@ -239,16 +246,10 @@ def make_icp_frame_step(proj: projection.SphericalProjection,
     def step(map_state: lm.ProjectiveMapState, delta_since_update: torch.Tensor,
              vmap: torch.Tensor, init_pose: torch.Tensor):
         pose_params, pose_mat, loss, it, matches = register(map_state, vmap, init_pose)
-        # Insert when the motion since the last inserted frame passes the
-        # thresholds.
-        new_delta = delta_since_update @ pose_mat
-        d_params = se3.from_pose_matrix(new_delta[None])[0]
-        insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
-            (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
+        insert, delta_out = lm.insert_rule(delta_since_update, pose_mat,
+                                           threshold_trans, threshold_rot)
         map_state = lm.update_projective_map(map_state, pose_mat, vmap, proj, insert,
                                              normals_kernel_size=normals_kernel_size)
-        eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
-        delta_out = torch.where(insert, eye, new_delta)
         return map_state, delta_out, ICPStepResult(pose_params, pose_mat, loss, it,
                                                    matches, insert)
 
@@ -356,22 +357,6 @@ class _FrameGraph:
         self._add_counts()
 
 
-def _shard_group(n_shard: int):
-    """The process group of `shard_points` = n_shard: None for n_shard <= 1;
-    else the first n_shard ranks of the initialized default group (ranks
-    beyond them register alone).  Raises when fewer ranks are up."""
-    if n_shard <= 1:
-        return None
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    assert_debug(world >= n_shard,
-                 f"shard_points={n_shard} but only {world} rank(s) in the process "
-                 f"group (run under torchrun --nproc_per_node {n_shard})")
-    if world == n_shard:
-        return dist.group.WORLD
-    group = dist.new_group(list(range(n_shard)))  # collective: every rank calls it
-    return group if dist.get_rank() < n_shard else None
-
-
 # ----------------------------------------------------------------------------
 # Host-side odometry module (data_dict protocol)
 # ----------------------------------------------------------------------------
@@ -395,18 +380,23 @@ class ICPFrameToModel:
         self.projector = projector
         self.device = torch.device(config.device if device is None else device)
 
-        lm_dict = config.local_map if isinstance(config.local_map, dict) else {}
-        mode = lm_dict.get("type", "projective_local_map")
-        assert_debug(mode in MAP_TYPES,
-                     f"Unknown local_map type '{mode}'. Known: {list(MAP_TYPES)}")
+        map_dict = config.local_map if isinstance(config.local_map, dict) else {}
+        mode = map_dict.get("type", MAP_TYPES[0])
+        assert_debug(mode in MAPS, f"Unknown local_map type '{mode}'. Known: {list(MAPS)}")
         self._mode = mode
+        align_cfg = config.alignment if isinstance(config.alignment, dict) else {}
+        gn_cfg = dataclass_from_dict(
+            GaussNewtonConfig, align_cfg.get("gauss_newton_config", {}))
+        self._elastic = bool(align_cfg.get("elastic", False))
+        self._map: lm.LocalMap = MAPS[mode](config, projector, map_dict, gn_cfg, align_cfg)
+        self.local_map_size = int(self._map.config.local_map_size)
         fmt = str(config.upload_format or "f32")
         assert_debug(fmt in UPLOAD_FORMATS,
                      f"Unknown upload_format '{fmt}'. Known: {list(UPLOAD_FORMATS)}")
         assert_debug(
-            fmt == "f32" or mode != "projective_local_map",
+            fmt == "f32" or self._map.uploads,
             f"upload_format='{fmt}' has no effect with "
-            f"local_map.type=projective_local_map (it consumes vertex maps, "
+            f"local_map.type={mode} (it consumes vertex maps, "
             f"not host point uploads) -- use another map, or drop the override")
         assert_debug(str(config.pose_type or "") in POSE_TYPES,
                      f"Unknown pose_type '{config.pose_type}'")
@@ -414,86 +404,6 @@ class ICPFrameToModel:
         # the dither's generator, made on the first dithered frame and kept
         # across init(), as in the JAX package
         self._dither_rng: Optional[np.random.Generator] = None
-        align_cfg = config.alignment if isinstance(config.alignment, dict) else {}
-        gn_cfg = dataclass_from_dict(
-            GaussNewtonConfig, align_cfg.get("gauss_newton_config", {}))
-        self._elastic = bool(align_cfg.get("elastic", False))
-
-        if mode == "projective_local_map":
-            self._proj_cfg = dataclass_from_dict(lm.ProjectiveLocalMapConfig, lm_dict)
-            self.local_map_size = int(self._proj_cfg.local_map_size)
-            self._step, self._first, self._build_vmap = make_icp_frame_step(
-                proj=projector,
-                max_num_alignments=int(config.max_num_alignments),
-                threshold_delta_pose=float(config.threshold_delta_pose),
-                threshold_trans=float(config.threshold_trans),
-                threshold_rot=float(config.threshold_rot),
-                gn=gn_cfg,
-                normals_kernel_size=int(self._proj_cfg.normals_kernel_size))
-        elif mode == "voxel_local_map":
-            self._vox_cfg = dataclass_from_dict(vm.VoxelTableMapConfig, lm_dict)
-            self.local_map_size = int(self._vox_cfg.local_map_size)
-            self._step, self._first, self._batch_step = vm.make_voxel_icp_frame_step(
-                proj=projector,
-                map_cfg=self._vox_cfg,
-                reassoc_every=int(config.reassoc_every or 1),
-                reassoc_motion_m=float(config.reassoc_motion_m or 0.0),
-                max_num_alignments=int(config.max_num_alignments),
-                threshold_delta_pose=float(config.threshold_delta_pose),
-                threshold_trans=float(config.threshold_trans),
-                threshold_rot=float(config.threshold_rot),
-                gn_scheme=gn_cfg.scheme,
-                gn_sigma=float(gn_cfg.sigma),
-                gn_eps=float(gn_cfg.eps),
-                upload_quantization=float(config.upload_quantization or 0.0))
-        elif mode == "kdtree_local_map":
-            self._surfel_cfg = dataclass_from_dict(sm.SurfelRingMapConfig, lm_dict)
-            self.local_map_size = int(self._surfel_cfg.local_map_size)
-            self._step, self._first, self._batch_step = \
-                sm.make_surfel_icp_frame_step(
-                    group=_shard_group(int(config.shard_points or 0)),
-                    proj=projector,
-                    map_cfg=self._surfel_cfg,
-                    reassoc_every=int(config.reassoc_every or 1),
-                    reassoc_motion_m=float(config.reassoc_motion_m or 0.0),
-                    max_num_alignments=int(config.max_num_alignments),
-                    threshold_delta_pose=float(config.threshold_delta_pose),
-                    threshold_trans=float(config.threshold_trans),
-                    threshold_rot=float(config.threshold_rot),
-                    gn_scheme=gn_cfg.scheme,
-                    gn_sigma=float(gn_cfg.sigma),
-                    gn_eps=float(gn_cfg.eps),
-                    upload_quantization=float(config.upload_quantization or 0.0))
-        else:
-            agg_cfg = dataclass_from_dict(am.AggregatedLocalMapConfig, lm_dict)
-            self.local_map_size = int(agg_cfg.local_map_size)
-            self._step, self._first, self._batch_step = am.make_agg_icp_frame_step(
-                proj=projector,
-                map_cfg=agg_cfg,
-                max_num_alignments=int(config.max_num_alignments),
-                reassoc_every=int(config.reassoc_every or 3),
-                reassoc_motion_m=float(config.reassoc_motion_m or 0.0),
-                threshold_delta_pose=float(config.threshold_delta_pose),
-                threshold_trans=float(config.threshold_trans),
-                threshold_rot=float(config.threshold_rot),
-                gn_scheme=gn_cfg.scheme,
-                gn_sigma=float(gn_cfg.sigma),
-                gn_eps=float(gn_cfg.eps),
-                gn_sigma_start=float(gn_cfg.sigma_start or 0.0),
-                gn_sigma_anneal_iters=int(gn_cfg.sigma_anneal_iters or 0),
-                max_dist_to_plane=float(gn_cfg.max_dist_to_plane or 0.0),
-                beta_location_consistency=float(gn_cfg.beta_location_consistency or 0.0),
-                beta_constant_velocity=float(gn_cfg.beta_constant_velocity or 0.0),
-                beta_small_velocity=float(gn_cfg.beta_small_velocity or 0.0),
-                beta_orientation_consistency=float(
-                    gn_cfg.beta_orientation_consistency or 0.0),
-                upload_quantization=float(config.upload_quantization or 0.0),
-                deskew=bool(align_cfg.get("deskew", False)),
-                elastic=self._elastic,
-                alignment_mode=str(align_cfg.get("mode", "point_to_plane_gauss_newton")),
-            )
-        # the map's maker declares whether its step may be captured
-        self._graph_safe = bool(getattr(self._step, "graph_safe", False))
         # Batched mode: when True, every flush copies its (B, 6) params to
         # pinned host memory (one transfer per batch, behind a CUDA event)
         # and drain_batch_results hands per-frame float64 relative poses to
@@ -505,21 +415,7 @@ class ICPFrameToModel:
 
     def init(self):
         with span("odometry.init"):
-            h, w = self.projector.height, self.projector.width
-            if self._mode == "projective_local_map":
-                self._map_state = lm.init_projective_map(self.local_map_size, h, w,
-                                                         self.device)
-            elif self._mode == "voxel_local_map":
-                self._map_state = vm.init_voxel_map(self._vox_cfg, self.device)
-            elif self._mode == "kdtree_local_map":
-                cfg = self._surfel_cfg
-                use_hash = str(cfg.nn_backend) == "hash"
-                self._map_state = sm.init_surfel_map(
-                    self.local_map_size, int(cfg.points_per_frame), self.device,
-                    hash_buckets=int(cfg.hash_buckets) if use_hash else 0,
-                    hash_capacity=int(cfg.hash_capacity) if use_hash else 0)
-            else:
-                self._map_state = am.init_agg_map(h, w, self.device)
+            self._map_state = self._map.init_state(self.device)
             self._delta_since_update = torch.eye(4, dtype=torch.float32,
                                                  device=self.device)
             # Device-side pose log: (k, 6) params per flush, fetched once.
@@ -544,45 +440,31 @@ class ICPFrameToModel:
             self.pipe_stats = {"upload_wait_s": 0.0, "dispatch_s": 0.0, "flushes": 0}
 
     def _viz_update(self):
-        """With `viz_debug`, the local map's range image (aggregated and
+        """With `viz_debug`, the local map's model image (aggregated and
         projective maps) colormapped to PNGs under ./viz_debug, and to a cv2
         window where one can open.  Debug only: each update fetches the
         model image from the device."""
-        if not bool(self.config.viz_debug):
+        if not bool(self.config.viz_debug) or self._map.model_image is None:
             return
         if self._viz is None:
             from pylidar_slam_tpu_torch.viz.visualizer import ImageVisualizer
             self._viz = ImageVisualizer(output_dir="viz_debug", use_window=True)
-        st = self._map_state
-        img = None
-        if self._mode == "aggregated_local_map":
-            img = st.rng.cpu().numpy()
-        elif self._mode == "projective_local_map":
-            img = torch.linalg.vector_norm(st.vmaps[0], dim=-1).cpu().numpy()
-        if img is not None:
-            self._viz.update(img, tag="model_range")
+        self._viz.update(self._map.model_image(self._map_state).cpu().numpy(),
+                         tag="model_range")
 
     # -- EI bootstrap -------------------------------------------------------
 
-    def _boot_cloud_of(self, data_dict: dict, fallback=None) -> Optional[np.ndarray]:
-        """Meters (N, 3) host cloud for the EI bootstrap, preferring the raw
-        input over (possibly encoded) upload buffers."""
-        raw = data_dict.get(self.config.data_key)
-        if raw is not None:
-            return self._input_cloud(raw)[:, :3].astype(np.float32)
-        if isinstance(fallback, np.ndarray) and fallback.dtype == np.float32:
-            return fallback[:, :3]
-        return None
+    def _boot_cloud_of(self, data_dict: dict) -> np.ndarray:
+        """The frame's (N, 3) float32 host cloud in meters, for the EI
+        bootstrap: the raw input, not the (possibly encoded) upload."""
+        return self._input_cloud(self._input(data_dict))[:, :3].astype(np.float32)
 
-    def _ei_bootstrap_pose(self, data_dict: dict, fallback=None):
-        """BEV phase-correlation alignment of frame 1 to frame 0: a (4, 4)
-        float32 device init pose (current frame -> previous frame), or None
-        when a cloud is missing or the estimate fails its checks."""
+    def _ei_bootstrap_pose(self, data_dict: dict):
+        """BEV phase-correlation alignment of frame 1 to frame 0 (the cloud
+        ``_boot_cloud``): a (4, 4) float32 device init pose (current frame
+        -> previous frame), or None when the estimate fails its checks."""
         with span("odometry.bootstrap"):
-            cur = self._boot_cloud_of(data_dict, fallback)
-            prev = self._boot_cloud
-            if cur is None or prev is None:
-                return None
+            cur, prev = self._boot_cloud_of(data_dict), self._boot_cloud
             cfg = self.config
             size = int(cfg.ei_bootstrap_size)
             px = float(cfg.ei_bootstrap_pixel)
@@ -607,17 +489,21 @@ class ICPFrameToModel:
                 return None
             return mat
 
-    def _maybe_bootstrap(self, data_dict: dict, init_pose: torch.Tensor,
-                         fallback=None):
-        """Swaps an uninformative (identity) frame-1 init for the EI
-        estimate; a caller-supplied real prior wins."""
-        if self._iter != 1 or not bool(self.config.ei_bootstrap) \
-                or self._boot_cloud is None:
+    def _maybe_bootstrap(self, data_dict: dict, init_pose: torch.Tensor) -> torch.Tensor:
+        """Frame 1's init pose: the EI estimate in place of `init_pose`
+        where it passes its checks (``_boot_cloud`` is held only with
+        ``ei_bootstrap`` on).  At batch 1 `init_pose` is the caller's
+        prior, and an informative one (not the identity) wins.  Batched, it
+        is the start of the chain, the identity after frame 0, so frame 1
+        is always bootstrapped."""
+        if self._iter != 1 or self._boot_cloud is None:
             return init_pose
-        eye = torch.eye(4, dtype=init_pose.dtype, device=init_pose.device)
-        # frame 1 only: this reads the prior back to the host
-        informative = float(torch.abs(init_pose - eye).max()) > 1e-5
-        boot = None if informative else self._ei_bootstrap_pose(data_dict, fallback)
+        informative = False
+        if not self.buffers_uploads:
+            eye = torch.eye(4, dtype=init_pose.dtype, device=init_pose.device)
+            # frame 1 only: this reads the prior back to the host
+            informative = float(torch.abs(init_pose - eye).max()) > 1e-5
+        boot = None if informative else self._ei_bootstrap_pose(data_dict)
         self._boot_cloud = None
         return init_pose if boot is None else boot
 
@@ -689,7 +575,7 @@ class ICPFrameToModel:
         name, "packed" (H*W <= 65536, else the point list below), "int16"
         (upload_quantization > 0; not on the projective map, which
         rasterizes the f32 cloud) or "f32"."""
-        if self._mode == "projective_local_map":
+        if not self._map.uploads:
             return "f32"
         fmt = str(self.config.upload_format or "f32")
         if fmt.startswith("rimg") or (
@@ -789,7 +675,7 @@ class ICPFrameToModel:
         vmap = self._vertex_map(data)
         if vmap is not None:
             return torch.as_tensor(vmap, device=self.device)
-        return self._build_vmap(*self._read_points(data_dict))
+        return self._map.vertex_map(*self._read_points(data_dict))
 
     @staticmethod
     def pointcloud_key() -> str:
@@ -801,44 +687,51 @@ class ICPFrameToModel:
 
     # -- main ---------------------------------------------------------------
 
-    def process_next_frame(self, data_dict: dict):
-        if self._mode == "projective_local_map":
-            # one frame per step: the projective map ignores batch_size
-            return self._process_projective(data_dict)
-        if int(self.config.batch_size or 1) > 1 and self._iter > 0:
-            return self._buffer_frame(data_dict)
+    @property
+    def buffers_uploads(self) -> bool:
+        """Frames after the first are kept as host upload buffers and
+        stepped a batch at a time: a map that steps uploads, at
+        ``batch_size`` > 1.  Such a frame's upload may be encoded ahead, in
+        a prefetch worker (``encode_upload``)."""
+        return self._map.uploads and int(self.config.batch_size or 1) > 1
 
-        points, mask = self._read_points(data_dict)
-        if self._iter == 0:
+    def process_next_frame(self, data_dict: dict):
+        if self.buffers_uploads and self._iter > 0:
+            return self._buffer_frame(data_dict)
+        # one frame a step: frame 0, batch 1, and the projective map, which
+        # ignores batch_size
+        uploads = self._map.uploads
+        frame = self._read_points(data_dict) if uploads else (self._read_input(data_dict),)
+        if self._iter == 0:  # into the map at the identity pose
             with span("odometry.dispatch", 0):
-                self._map_state = self._first(self._map_state, points, mask)
+                self._map_state = self._map.first_frame(self._map_state, *frame)
             count("odometry.frames_stepped")
-            return self._started(data_dict)
+            self.last_rpose_device = torch.eye(4, dtype=torch.float32, device=self.device)
+            self._params_log.append(torch.zeros((1, 6), dtype=torch.float32,
+                                                device=self.device))
+            self._iter += 1
+            data_dict[self.relative_pose_key()] = self.last_rpose_device
+            if bool(self.config.ei_bootstrap):  # kept for the frame-1 EI bootstrap
+                self._boot_cloud = self._boot_cloud_of(data_dict)
+            return
 
         init_pose = self._maybe_bootstrap(data_dict, self._init_pose(data_dict))
         with span("odometry.dispatch", self._iter):
-            (self._map_state, self._delta_since_update, rpose, pose_params,
-             _diag) = self._step(self._map_state, self._delta_since_update,
-                                 points, mask, init_pose)
+            out = self._map.step(self._map_state, self._delta_since_update, *frame,
+                                 init_pose)
         count("odometry.frames_stepped")
+        if uploads:
+            self._map_state, self._delta_since_update, rpose, pose_params, _diag = out
+            pc_out = self._input_cloud(data_dict[self.config.data_key])[:, :3]
+        else:  # the projective step's ICPStepResult; its vertex map goes downstream
+            self._map_state, self._delta_since_update, result = out
+            rpose, pose_params, pc_out = result.pose_matrix, result.pose_params, frame[0]
         self.last_rpose_device = rpose
         self._params_log.append(pose_params[None])
         data_dict[self.relative_pose_key()] = rpose
-        data_dict[self.pointcloud_key()] = \
-            self._input_cloud(data_dict[self.config.data_key])[:, :3]
+        data_dict[self.pointcloud_key()] = pc_out
         self._iter += 1
         self._viz_update()
-
-    def _started(self, data_dict: dict):
-        """Frame 0 is in the map: identity pose, and its cloud kept for the
-        frame-1 EI bootstrap."""
-        self.last_rpose_device = torch.eye(4, dtype=torch.float32, device=self.device)
-        self._params_log.append(torch.zeros((1, 6), dtype=torch.float32,
-                                            device=self.device))
-        self._iter += 1
-        data_dict[self.relative_pose_key()] = self.last_rpose_device
-        if bool(self.config.ei_bootstrap):
-            self._boot_cloud = self._boot_cloud_of(data_dict)
 
     def _init_pose(self, data_dict: dict) -> torch.Tensor:
         """The caller's prior (e.g. the previous frame's pose, still on the
@@ -847,27 +740,6 @@ class ICPFrameToModel:
         if init is None:
             return torch.eye(4, dtype=torch.float32, device=self.device)
         return torch.as_tensor(init, dtype=torch.float32, device=self.device)
-
-    def _process_projective(self, data_dict: dict):
-        """The projective map's frame: the vertex map goes through the step
-        and on to downstream consumers as ``odometry_pc``."""
-        vmap = self._read_input(data_dict)
-        if self._iter == 0:
-            with span("odometry.dispatch", 0):
-                self._map_state = self._first(self._map_state, vmap)
-            count("odometry.frames_stepped")
-            return self._started(data_dict)
-        init_pose = self._maybe_bootstrap(data_dict, self._init_pose(data_dict))
-        with span("odometry.dispatch", self._iter):
-            self._map_state, self._delta_since_update, result = self._step(
-                self._map_state, self._delta_since_update, vmap, init_pose)
-        count("odometry.frames_stepped")
-        self.last_rpose_device = result.pose_matrix
-        self._params_log.append(result.pose_params[None])
-        data_dict[self.relative_pose_key()] = result.pose_matrix
-        data_dict[self.pointcloud_key()] = vmap
-        self._iter += 1
-        self._viz_update()
 
     def _buffer_frame(self, data_dict: dict):
         """Batched path: keeps the frame as a host upload buffer; the whole
@@ -887,14 +759,10 @@ class ICPFrameToModel:
                     entry = self._compact_host_buffer(arr)
                 # Downstream consumers need METERS, not an encoded buffer.
                 pc_out = entry if entry.dtype == np.float32 else arr[:, :3]
-            if self._iter == 1 and bool(self.config.ei_bootstrap) and \
-                    self._boot_cloud is not None:
-                # The CV chain starts from last_rpose_device (identity after
-                # frame 0); the BEV estimate makes frame 1's init real.
-                boot = self._ei_bootstrap_pose(data_dict, fallback=pc_out)
-                if boot is not None:
-                    self.last_rpose_device = boot
-                self._boot_cloud = None
+            # the CV chain starts from last_rpose_device (identity after
+            # frame 0); the BEV estimate makes frame 1's init real
+            self.last_rpose_device = self._maybe_bootstrap(data_dict,
+                                                           self.last_rpose_device)
             self._frame_buffer.append(entry)
             self._iter += 1
             data_dict[self.pointcloud_key()] = pc_out
@@ -909,7 +777,8 @@ class ICPFrameToModel:
         return stacked
 
     def _flush_batch(self):
-        """Runs the buffered frames through one batched device run."""
+        """Runs the buffered frames through one batched device run: a full
+        batch, or at ``finish()`` the partial one, as a shorter batch."""
         if not self._frame_buffer:
             return
         bufs = self._frame_buffer
@@ -926,7 +795,7 @@ class ICPFrameToModel:
             params = self._step_graphed(pts, msks)
             if params is None:
                 (self._map_state, self._delta_since_update, self.last_rpose_device,
-                 params, _diags) = self._batch_step(
+                 params, _diags) = self._map.batch_step(
                     self._map_state, self._delta_since_update,
                     self.last_rpose_device, pts, msks)
         st = self.pipe_stats
@@ -939,30 +808,6 @@ class ICPFrameToModel:
             self._pending_params.append(copy_to_host_async(params))
         self._viz_update()  # one model render per flush
 
-    def _flush_remainder(self):
-        """Processes a final partial buffer with the per-frame step."""
-        # the flushed batches' poses come first in the pose stream
-        self._collect_params(wait=True)
-        for buf in self._frame_buffer:
-            if isinstance(buf, tuple):
-                points, mask = buf
-            else:
-                with span("odometry.upload"):
-                    points, mask = self._upload(buf[None])[0], self._ones_mask()
-            with span("odometry.dispatch"):
-                pose_params = self._step_graphed(points[None], mask[None])
-                if pose_params is None:
-                    (self._map_state, self._delta_since_update, self.last_rpose_device,
-                     pose_params, _diag) = self._step(
-                        self._map_state, self._delta_since_update, points, mask,
-                        self.last_rpose_device)
-                    pose_params = pose_params[None]
-            count("odometry.frames_stepped")
-            self._params_log.append(pose_params)
-            if self.emit_batch_poses:
-                self._pending_params.append(copy_to_host_async(pose_params))
-        self._frame_buffer = []
-
     def _step_graphed(self, pts: torch.Tensor, msks: torch.Tensor) -> Optional[torch.Tensor]:
         """Steps frames pts[i] (masks msks[i]) in order by replays of the
         step's CUDA graph for their key, captured at the key's first use
@@ -970,7 +815,7 @@ class ICPFrameToModel:
         None where the step runs eagerly: on the CPU, for a map whose step
         is not graph-safe, and for the first batch after ``init()``, which
         warms the libraries and the allocator."""
-        if not (self._graph_safe and _FrameGraph.runs_on(pts.device)):
+        if not (self._map.graph_safe and _FrameGraph.runs_on(pts.device)):
             return None
         if not self._graph_warm:
             self._graph_warm = True
@@ -980,7 +825,7 @@ class ICPFrameToModel:
         graph = self._graphs.get(key)
         first = 0
         if graph is None:
-            graph = _FrameGraph(self._step, self._map_state, self._delta_since_update,
+            graph = _FrameGraph(self._map.step, self._map_state, self._delta_since_update,
                                 self.last_rpose_device, pts[0], msks[0])
             graph.capture(pts[0], msks[0], params[0])
             self._graphs[key] = graph
@@ -1024,8 +869,7 @@ class ICPFrameToModel:
 
     def finish(self):
         """Flushes a partially filled batch buffer at sequence end."""
-        if self._frame_buffer:
-            self._flush_remainder()
+        self._flush_batch()
 
     def fetch_params_log(self) -> Optional[np.ndarray]:
         """One device->host fetch of all logged pose params (T, 6), float64."""
@@ -1038,14 +882,9 @@ class ICPFrameToModel:
         """Float64 relative pose matrices, rebuilt from the float32 params
         the device solved for; in elastic mode on the surface `pose_type`
         selects."""
-        params = self.fetch_params_log()
-        if params is None:
-            return None
-        rel = np.stack([_pose_matrix_f64(p) for p in params])
         pose_type = str(self.config.pose_type or "")
-        if self._elastic and pose_type in _POSE_FRACTIONS:
-            return _ct_relative_poses(rel, _POSE_FRACTIONS[pose_type])
-        return rel
+        elastic = self._elastic and pose_type in _POSE_FRACTIONS
+        return self.get_ct_relative_poses(pose_type if elastic else "begin_pose")
 
     def get_ct_relative_poses(self, pose_type: str = "mid_pose") -> Optional[np.ndarray]:
         """Relative poses between consecutive begin / mid / end scan poses,

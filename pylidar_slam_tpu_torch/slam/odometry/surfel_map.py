@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pylidar_slam_tpu_torch.config import dataclass_from_dict
 from pylidar_slam_tpu_torch.ops import geometry, projection, se3, voxel
 from pylidar_slam_tpu_torch.ops.hash_nn import (build_hash_grid, hash_grid_knn,
                                                 hash_grid_nn, pack_grid)
@@ -49,8 +50,9 @@ from pylidar_slam_tpu_torch.ops.optimization import (gauss_newton_step,
                                                      point_to_plane_at_identity,
                                                      robust_weights)
 from pylidar_slam_tpu_torch.slam.odometry.aggregated_map import (
-    _gather_image, dequant_upload, rasterize_encoded, select_state)
-from pylidar_slam_tpu_torch.slam.odometry.local_map import LocalMapConfig
+    _gather_image, dequant_upload, rasterize_encoded)
+from pylidar_slam_tpu_torch.slam.odometry.local_map import (
+    LocalMap, LocalMapConfig, icp_args, insert_rule, make_batch_step, select_state)
 from pylidar_slam_tpu_torch.utils import assert_debug
 from pylidar_slam_tpu_torch.utils.timer import count, device_counts, span
 
@@ -411,10 +413,8 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
             inv_anchor = se3.inverse_pose_matrix(state.anchor_from_cur)
             t_final = se3.normalize_pose_matrix((inv_anchor @ ta)[None])[0]
 
-            new_delta = delta_since_update @ t_final
-            d_params = se3.from_pose_matrix(new_delta[None])[0]
-            do_insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
-                (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
+            do_insert, delta_out = insert_rule(delta_since_update, t_final,
+                                               threshold_trans, threshold_rot)
 
             # Both branches of each JAX lax.cond, selected on the device.  A
             # non-insert frame only moves the anchor pose.
@@ -424,9 +424,6 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
             state = select_state(do_insert, inserted, state._replace(anchor_from_cur=ta))
             far = torch.linalg.vector_norm(state.anchor_from_cur[:3, 3]) > reanchor_dist
             state = select_state(far, reanchor(state), state)
-
-            eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
-            delta_out = torch.where(do_insert, eye, new_delta)
             pose_params = se3.from_pose_matrix(t_final[None])[0]
         if counted:
             device_counts(counted, torch.stack(work))
@@ -442,26 +439,42 @@ def make_surfel_icp_frame_step(proj: projection.SphericalProjection,
             device_counts(("surfel.knn_dropped",), dropped[None])
         return state
 
-    def batch_step(state: SurfelMapState, delta_since_update: torch.Tensor,
-                   last_rpose: torch.Tensor,
-                   points_batch: torch.Tensor, masks_batch: torch.Tensor):
-        """Processes B frames in order; frame i's constant-velocity prior is
-        frame i-1's estimated relative pose, chained on the device.
+    return step, first_frame, make_batch_step(step)
 
-        Returns (state', delta', last_rpose', params (B, 6), diagnostics
-        (loss, iters, matches, inserted), each (B,)).
-        """
-        params, diags = [], []
-        delta, rpose = delta_since_update, last_rpose
-        for i in range(points_batch.shape[0]):
-            state, delta, rpose, p, diag = step(state, delta, points_batch[i],
-                                                masks_batch[i], rpose)
-            params.append(p)
-            diags.append(diag)
-        stacked = tuple(torch.stack(d) for d in zip(*diags))
-        return state, delta, rpose, torch.stack(params), stacked
 
-    # Fixed shapes and no host read: the odometry may capture the step in a
-    # CUDA graph, unless it is sharded (its all-reduces pass the host).
-    step.graph_safe = group is None
-    return step, first_frame, batch_step
+def _shard_group(n_shard: int):
+    """The process group of `shard_points` = n_shard: None for n_shard <= 1;
+    else the first n_shard ranks of the initialized default group (ranks
+    beyond them register alone).  Raises when fewer ranks are up."""
+    if n_shard <= 1:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    assert_debug(world >= n_shard,
+                 f"shard_points={n_shard} but only {world} rank(s) in the process "
+                 f"group (run under torchrun --nproc_per_node {n_shard})")
+    if world == n_shard:
+        return dist.group.WORLD
+    group = dist.new_group(list(range(n_shard)))  # collective: every rank calls it
+    return group if dist.get_rank() < n_shard else None
+
+
+def kdtree_local_map(config, proj: projection.SphericalProjection, map_dict: dict,
+                     gn, alignment: dict) -> LocalMap:
+    """The surfel map's record.  Its step has fixed shapes and reads
+    nothing back to the host, so the odometry may capture it in a CUDA
+    graph, unless it is sharded over `shard_points` ranks (its all-reduces
+    pass the host)."""
+    cfg = dataclass_from_dict(SurfelRingMapConfig, map_dict)
+    group = _shard_group(int(config.shard_points or 0))
+    step, first_frame, batch_step = make_surfel_icp_frame_step(
+        group=group, proj=proj, map_cfg=cfg,
+        reassoc_every=int(config.reassoc_every or 1), **icp_args(config, gn))
+    k, s = int(cfg.local_map_size), int(cfg.points_per_frame)
+    use_hash = str(cfg.nn_backend) == "hash"
+
+    def init_state(device) -> SurfelMapState:
+        return init_surfel_map(k, s, device,
+                               hash_buckets=int(cfg.hash_buckets) if use_hash else 0,
+                               hash_capacity=int(cfg.hash_capacity) if use_hash else 0)
+    return LocalMap(cfg, init_state, step, first_frame, batch_step,
+                    graph_safe=group is None)

@@ -30,6 +30,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from pylidar_slam_tpu_torch.config import dataclass_from_dict
 from pylidar_slam_tpu_torch.ops import geometry, projection, se3
 from pylidar_slam_tpu_torch.ops.optimization import (gauss_newton_step,
                                                      point_to_plane_at_identity,
@@ -40,7 +41,8 @@ from pylidar_slam_tpu_torch.ops.voxel_table import (VoxelTable, init_table,
                                                     table_reanchor,
                                                     table_set_normals)
 from pylidar_slam_tpu_torch.slam.odometry.aggregated_map import dequant_upload
-from pylidar_slam_tpu_torch.slam.odometry.local_map import LocalMapConfig, select_state
+from pylidar_slam_tpu_torch.slam.odometry.local_map import (
+    LocalMap, LocalMapConfig, icp_args, insert_rule, make_batch_step, select_state)
 
 
 @dataclass
@@ -201,10 +203,8 @@ def make_voxel_icp_frame_step(proj: projection.SphericalProjection,
         q_final, it, loss, matches = register(state, targets, t_valid, q_init)
         t_final = se3.inverse_pose_matrix(state.anchor_t_last) @ q_final
 
-        new_delta = delta_since_update @ t_final
-        d_params = se3.from_pose_matrix(new_delta[None])[0]
-        do_insert = (torch.linalg.vector_norm(d_params[:3]) > threshold_trans) | \
-            (torch.linalg.vector_norm(d_params[3:]) * 180.0 / math.pi > threshold_rot)
+        do_insert, delta_out = insert_rule(delta_since_update, t_final,
+                                           threshold_trans, threshold_rot)
 
         # Both branches of each JAX lax.cond, selected on the device.
         sel_anchor = se3.apply_transformation(targets, q_final)
@@ -220,9 +220,6 @@ def make_voxel_icp_frame_step(proj: projection.SphericalProjection,
                                  se3.inverse_pose_matrix(state.anchor_t_last), vox),
             anchor_t_last=torch.eye(4, dtype=torch.float32, device=q_final.device))
         state = select_state(far, moved_anchor, state)
-
-        eye = torch.eye(4, dtype=new_delta.dtype, device=new_delta.device)
-        delta_out = torch.where(do_insert, eye, new_delta)
         pose_params = se3.from_pose_matrix(t_final[None])[0]
         return state, delta_out, t_final, pose_params, (loss, it, matches, do_insert)
 
@@ -234,20 +231,16 @@ def make_voxel_icp_frame_step(proj: projection.SphericalProjection,
         return state._replace(table=insert(state, sel, sel_valid),
                               frame=state.frame + 1)
 
-    def batch_step(state: VoxelMapState, delta_since_update: torch.Tensor,
-                   last_rpose: torch.Tensor, points_batch: torch.Tensor,
-                   masks_batch: torch.Tensor):
-        """Processes B frames in order; frame i's constant-velocity prior is
-        frame i-1's estimated relative pose, chained on the device.  Returns
-        (state', delta', last_rpose', params (B, 6), diagnostics (B,) each)."""
-        params, diags = [], []
-        delta, rpose = delta_since_update, last_rpose
-        for i in range(points_batch.shape[0]):
-            state, delta, rpose, p, diag = step(state, delta, points_batch[i],
-                                                masks_batch[i], rpose)
-            params.append(p)
-            diags.append(diag)
-        stacked = tuple(torch.stack(d) for d in zip(*diags))
-        return state, delta, rpose, torch.stack(params), stacked
+    return step, first_frame, make_batch_step(step)
 
-    return step, first_frame, batch_step
+
+def voxel_local_map(config, proj: projection.SphericalProjection, map_dict: dict,
+                    gn, alignment: dict) -> LocalMap:
+    """The voxel map's record.  Its step is not declared graph-safe: it
+    steps eagerly."""
+    cfg = dataclass_from_dict(VoxelTableMapConfig, map_dict)
+    step, first_frame, batch_step = make_voxel_icp_frame_step(
+        proj=proj, map_cfg=cfg, reassoc_every=int(config.reassoc_every or 1),
+        **icp_args(config, gn))
+    return LocalMap(cfg, lambda device: init_voxel_map(cfg, device), step, first_frame,
+                    batch_step, graph_safe=False)

@@ -161,12 +161,7 @@ class SLAM:
                 a = np.asarray(raw)
                 if a.ndim == 2 and a.shape[1] >= 3:
                     arr = a
-            if (arr is not None
-                    and getattr(odom, "encode_upload", None) is not None
-                    and int(getattr(odom.config, "batch_size", 1) or 1) > 1
-                    and getattr(odom, "_mode", "") in ("aggregated_local_map",
-                                                       "kdtree_local_map",
-                                                       "voxel_local_map")):
+            if arr is not None and getattr(odom, "buffers_uploads", False):
                 data_dict["encoded_upload"] = odom.encode_upload(arr)
             if arr is not None and self.loop_closure is not None and \
                     hasattr(self.loop_closure, "_subsample"):

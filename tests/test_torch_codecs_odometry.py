@@ -58,12 +58,16 @@ def _pair(loader, **over):
 def _record_batches(odom, monkeypatch) -> list:
     """The host bytes of every batch the odometry's batched step receives."""
     seen = []
-    batch_step = odom._batch_step
+    local_map = getattr(odom, "_map", None)  # the port drives its map's record
+    batch_step = odom._batch_step if local_map is None else local_map.batch_step
 
     def wrapped(state, delta, rpose, points, masks):
         seen.append(np.array(points))
         return batch_step(state, delta, rpose, points, masks)
-    monkeypatch.setattr(odom, "_batch_step", wrapped)
+    if local_map is None:
+        monkeypatch.setattr(odom, "_batch_step", wrapped)
+    else:
+        monkeypatch.setattr(odom, "_map", local_map._replace(batch_step=wrapped))
     return seen
 
 

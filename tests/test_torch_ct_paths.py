@@ -90,7 +90,7 @@ def step_like_jax(tcfg, seq=SKEW, label=""):
         jrel = np.asarray(jout[2])
         jdiag = [np.asarray(d) for d in jout[4]]
     launches = assoc_gn.assoc_gn.launches
-    tout = t._step(tstate, torch.from_numpy(eye), torch.from_numpy(u1),
+    tout = t._map.step(tstate, torch.from_numpy(eye), torch.from_numpy(u1),
                    torch.from_numpy(ones), torch.from_numpy(init))
     assert assoc_gn.assoc_gn.launches == launches  # CPU: the plain version
     trel = tout[2].numpy()

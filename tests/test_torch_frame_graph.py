@@ -132,7 +132,7 @@ def _assert_same(a, b):
 
 def test_cpu_tensors_never_capture(loader, frames):
     odom = _odometry(loader)
-    assert odom._graph_safe
+    assert odom._map.graph_safe
     poses, _, counts = _feed(odom, frames[:N])
     assert poses.shape == (N, 4, 4)
     assert counts["count.odometry.frames_stepped"] == N
@@ -249,7 +249,7 @@ def test_surfel_graph_slots_and_counts_match_eager(surfel_scans, monkeypatch):
     eager = _feed(_surfel_odometry(), surfel_scans, SURFEL_COUNTS)
     monkeypatch.setattr(icp, "_FrameGraph", _EagerGraph)
     odom = _surfel_odometry()
-    assert odom._graph_safe
+    assert odom._map.graph_safe
     graphed = _feed(odom, surfel_scans, SURFEL_COUNTS)
     assert isinstance(odom._map_state, sm.SurfelMapState)
     assert odom._map_state.table_pts.numel() == 0
@@ -271,14 +271,14 @@ def test_sharded_surfel_step_is_not_graph_safe(monkeypatch):
     """A step built with a process group all-reduces through the host on
     every GN trip: it stays eager.  Without one it may be captured."""
     program, sensor = _surfel_setup()
-    proj = harness.projector_of(sensor)
-    map_cfg = dataclasses.replace(sm.SurfelRingMapConfig(), **program["local_map"])
-    args = dict(proj=proj, map_cfg=map_cfg, max_num_alignments=20,
-                threshold_delta_pose=1e-4, threshold_trans=0.1, threshold_rot=0.3,
-                gn_scheme="neighborhood", gn_sigma=0.2)
-    step, _, _ = sm.make_surfel_icp_frame_step(**args)
-    assert step.graph_safe is True
+    config = icp.ICPFrameToModelConfig(**dict(program, shard_points=2))
+    gn = icp.GaussNewtonConfig(**program["alignment"]["gauss_newton_config"])
+    args = (harness.projector_of(sensor), program["local_map"], gn, {})
+    assert sm.kdtree_local_map(dataclasses.replace(config, shard_points=0),
+                               *args).graph_safe is True
+    groups = []
+    monkeypatch.setattr(sm, "_shard_group", lambda n: groups.append(n) or object())
     monkeypatch.setattr(sm.dist, "get_world_size", lambda group: 2)
     monkeypatch.setattr(sm.dist, "get_rank", lambda group: 0)
-    sharded, _, _ = sm.make_surfel_icp_frame_step(group=object(), **args)
-    assert sharded.graph_safe is False
+    assert sm.kdtree_local_map(config, *args).graph_safe is False
+    assert groups == [2]

@@ -304,7 +304,7 @@ def _graph_odometry(proj, upload, cuda, graphed=True):
         over["num_points_padded"] = 6 * 16384
     odom = ICPFrameToModel(dataclasses.replace(acceptance.champion_configs()["aggregated"],
                                                **over), projector=proj)
-    if not graphed:  # the eager reference: every batch through `_batch_step`
+    if not graphed:  # the eager reference: every batch through the map's batch_step
         odom._step_graphed = lambda pts, msks: None
     return odom
 
@@ -369,7 +369,7 @@ def test_graphed_surfel_odometry_equals_eager(cuda, local_map):
     runs = []
     for graphed in (False, True):
         odom = ICPFrameToModel(cfg, projector=proj)
-        assert odom._graph_safe
+        assert odom._map.graph_safe
         if not graphed:
             odom._step_graphed = lambda pts, msks: None
         searches = b2.nn_argmin.launches

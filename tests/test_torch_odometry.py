@@ -82,7 +82,9 @@ def _capture_diags(odom, to_np, monkeypatch):
     """Records the (loss, iterations, matches, inserted) diagnostics of every
     device step the odometry runs."""
     log = []
-    batch_step, step = odom._batch_step, odom._step
+    local_map = getattr(odom, "_map", None)  # the port drives its map's record
+    batch_step, step = (odom._batch_step, odom._step) if local_map is None else \
+        (local_map.batch_step, local_map.step)
 
     def batch_wrap(*args):
         out = batch_step(*args)
@@ -94,8 +96,12 @@ def _capture_diags(odom, to_np, monkeypatch):
         log.append(tuple(to_np(d) for d in out[4]))
         return out
 
-    monkeypatch.setattr(odom, "_batch_step", batch_wrap)
-    monkeypatch.setattr(odom, "_step", step_wrap)
+    if local_map is None:
+        monkeypatch.setattr(odom, "_batch_step", batch_wrap)
+        monkeypatch.setattr(odom, "_step", step_wrap)
+    else:
+        monkeypatch.setattr(odom, "_map", local_map._replace(batch_step=batch_wrap,
+                                                             step=step_wrap))
     return log
 
 
@@ -165,7 +171,7 @@ def test_step_and_batch_step_from_the_same_state(frames, jax_odom):
         tstate = to_torch(state)
         jout = j._step(state, jnp.asarray(eye), jnp.asarray(upload(1)),
                        jnp.asarray(ones), jnp.asarray(eye))
-    tout = t._step(tstate, torch.from_numpy(eye), torch.from_numpy(upload(1)),
+    tout = t._map.step(tstate, torch.from_numpy(eye), torch.from_numpy(upload(1)),
                    torch.from_numpy(ones), torch.from_numpy(eye))
     np.testing.assert_allclose(tout[2].numpy(), np.asarray(jout[2]), rtol=0, atol=1e-5)
     for a, b in zip(tout[4], jout[4]):
@@ -182,7 +188,7 @@ def test_step_and_batch_step_from_the_same_state(frames, jax_odom):
     masks = np.ones((12, CAP), bool)
     with jax.enable_x64(False):
         jb = j._batch_step(state, delta, rpose, jnp.asarray(pts), jnp.asarray(masks))
-    tb = t._batch_step(tstate, torch.as_tensor(np.asarray(delta)),
+    tb = t._map.batch_step(tstate, torch.as_tensor(np.asarray(delta)),
                        torch.as_tensor(np.asarray(rpose)), torch.from_numpy(pts),
                        torch.from_numpy(masks))
     assert np.array_equal(tb[4][3].numpy(), np.asarray(jb[4][3]))  # inserts

@@ -80,7 +80,7 @@ def forced_step_gaps(t, j, monkeypatch) -> list:
             {k: np.asarray(v) for k, v in state._asdict().items()}, "cpu")
         targs = [torch.from_numpy(np.array(a)) for a in (delta, points, mask, init)]
         out = step(state, delta, points, mask, init)
-        pairs.append((t._step(tstate, *targs)[2].numpy(), np.asarray(out[2])))
+        pairs.append((t._map.step(tstate, *targs)[2].numpy(), np.asarray(out[2])))
         return out
     monkeypatch.setattr(j, "_step", wrapped)
     return pairs

@@ -275,14 +275,18 @@ def _run(odom, frames, key="numpy_pc", to_input=None):
 
 def _capture_results(odom, monkeypatch):
     """Records the ICPStepResult of every projective step."""
-    log, step = [], odom._step
+    local_map = getattr(odom, "_map", None)  # the port drives its map's record
+    log, step = [], odom._step if local_map is None else local_map.step
 
     def wrap(*args):
         out = step(*args)
         log.append(out[2])
         return out
 
-    monkeypatch.setattr(odom, "_step", wrap)
+    if local_map is None:
+        monkeypatch.setattr(odom, "_step", wrap)
+    else:
+        monkeypatch.setattr(odom, "_map", local_map._replace(step=wrap))
     return log
 
 

@@ -73,13 +73,13 @@ def test_surfel_counts_equal_the_diagnostics(monkeypatch):
     monkeypatch.setattr(sm, "_grid_sample_fixed", sampling)
     drv = harness.OdometryDriver(program, cfg["sensor"], 1, CPU)
     steps = []  # (valid map points before the frame, iterations, inserted)
-    step = drv.odom._step
+    step = drv.odom._map.step
 
     def logged(state, *a):
         out = step(state, *a)
         steps.append((int(state.valid.sum()), int(out[4][1]), bool(out[4][3])))
         return out
-    monkeypatch.setattr(drv.odom, "_step", logged)
+    monkeypatch.setattr(drv.odom, "_map", drv.odom._map._replace(step=logged))
 
     before = timer.snapshot()
     for i in range(FRAMES):
